@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's forward path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's forward and training paths on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
-Phases (each prints a line; any failure raises and the exit code is not 0):
+Phases (each prints lines; any failure raises and the exit code is not 0):
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
    with no CUDA device the script stops here (there is no CPU run);
-2. build the kernels from ``interpol_tpu_torch/csrc`` with nvcc;
-3. each kernel against its plain PyTorch version on the card, float32,
-   over orders, bounds, extrapolation modes, odd shapes, a per-axis
-   ``max_disp``, 1-D / 2-D warps and a grid that breaks the ``max_disp``
-   contract; and the small registration model on the card against the
-   same model on the CPU;
-4. the main path: ``WarpModel`` at 256^3 (coarse 8^3, cubic, dct2,
-   ``max_disp=4``) and ``grid_grad`` at 256^3, with the launch counts,
-   agreement with the plain path, and times and peak memory of kernel
-   and plain paths beside the card's name and power limit.
+2. build the kernels from ``interpol_tpu_torch/csrc``, one nvcc per
+   source, all at once;
+3. each kernel mode (pull value / grad / hess, push, pushgrad) against its
+   plain PyTorch version on the card, float32, over orders, bounds,
+   extrapolation modes, odd shapes, a per-axis ``max_disp``, 1-D / 2-D
+   warps and a grid that breaks the ``max_disp`` contract; the adjoint
+   identities; the run-to-run spread of the atomic splat;
+4. the training steps at a small size on the card (kernels) against the
+   same steps on the CPU (plain versions);
+5. the main paths at full width, each with the launch counts set to 0
+   just before it and read just after: the ``WarpModel`` forward and
+   ``grid_grad`` (256^3, coarse 8^3, cubic, dct2, ``max_disp=4``), then
+   P2 ``train_step`` x3, P3 ``svf_train_step`` x3 (``jac_weight=0.1``)
+   and P4 the gradient of ``sum(grid_grad(v, g, max_disp=2)**2)``; the
+   kernels' outputs in each backward against the plain versions on the
+   same inputs;
+6. times and peak memory at 256^3 beside the card's name and power limit;
+   the device busy time, idle share and heaviest kernels of the two train
+   steps (torch.profiler).
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -31,14 +41,31 @@ import time
 import numpy as np
 import torch
 
-from interpol_tpu_torch import WarpModel, grid_grad
-from interpol_tpu_torch.ops import _build, cuda_warp, ndkernels
-from interpol_tpu_torch.ops.window import _grad_impl_torch, _pull_impl_torch
+from interpol_tpu_torch import (SVFModel, WarpModel, grid_grad,
+                                jacobian_det, svf_mse_loss, svf_train_step,
+                                train_step)
+from interpol_tpu_torch.ops import _build, cuda_warp, ndkernels, window
+from interpol_tpu_torch.ops.window import (
+    _grad_impl_torch, _hess_impl_torch, _pull_impl_torch, _push_impl_torch,
+    _pushgrad_impl_torch)
 
 # kernel vs plain: float32 sums of at most 512 non-zero taps taken in
-# another order; the JAX package's float32 parity gate is 1e-5 too
+# another order (for push, an order that varies from run to run); the JAX
+# package's float32 parity gate is 1e-5 too
 TOL = 1e-5
+# a whole train step, card vs CPU: the float32 losses and gradients sum
+# millions of such terms through several kernels (and resize matmuls)
+TOL_STEP = 1e-4
 MAIN_VOL, MAIN_COARSE = (256, 256, 256), (8, 8, 8)
+# one H100 SXM at its 700 W limit (NVIDIA's data sheet)
+HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+MODES = ("value", "grad", "hess", "push", "pushgrad")
+DEV = "cuda"
+PLAIN = {"_pull": _pull_impl_torch, "_grad": _grad_impl_torch,
+         "_hess": _hess_impl_torch, "_push": _push_impl_torch,
+         "_pushgrad": _pushgrad_impl_torch}
+MODE_OF = {"_pull": "value", "_grad": "grad", "_hess": "hess",
+           "_push": "push", "_pushgrad": "pushgrad"}
 
 
 def log(msg: str) -> None:
@@ -53,10 +80,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def rel_err(out: torch.Tensor, ref: torch.Tensor):
+def rel_err(out: torch.Tensor, ref: torch.Tensor, tol: float = TOL):
     """(max |out - ref|, the tolerance it is held to)."""
     err = (out.double() - ref.double()).abs().max().item()
-    return err, TOL * max(1.0, ref.abs().max().item())
+    return err, tol * max(1.0, ref.abs().max().item())
+
+
+def hold(errs, mode, tag, out, ref):
+    """Hold a kernel output to its plain version; keep the worst error."""
+    e, t = rel_err(out, ref)
+    errs[mode] = max(errs[mode], e)
+    if not e <= t:
+        raise AssertionError(f"{tag}: {mode} err {e:.3g} > tol {t:.3g}")
+    return e
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -98,8 +134,78 @@ def warp_case(B, C, ishape, disp, seed, break_contract=0.0):
     if break_contract:
         d = d * np.where(rng.uniform(size=d.shape) < 0.2, break_contract,
                          1.0)
-    cuda = dict(dtype=torch.float32, device="cuda")
-    return torch.tensor(inp, **cuda), torch.tensor(ident + d, **cuda)
+    f32 = dict(dtype=torch.float32, device=DEV)
+    return torch.tensor(inp, **f32), torch.tensor(ident + d, **f32)
+
+
+def cotangent(shape, seed):
+    gen = torch.Generator(DEV).manual_seed(seed)
+    return torch.randn(shape, device=DEV, generator=gen)
+
+
+class Drive:
+    """Run one main path with the launch counts set to 0 just before it
+    and read just after; keep the counts summed over the main paths."""
+
+    def __init__(self):
+        self.total = {m: 0 for m in MODES}
+
+    def __call__(self, name, fn, expect):
+        cuda_warp.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        by_mode = cuda_warp.LAUNCHES_BY_MODE
+        both = by_mode["value+grad"]
+        counts = {m: by_mode[m] + (both if m in ("value", "grad") else 0)
+                  for m in MODES}
+        log(f"{name}: launches {counts}")
+        for mode, (lo, hi) in expect.items():
+            if not lo <= counts[mode] <= hi:
+                raise AssertionError(f"{name}: {counts[mode]} {mode} "
+                                     f"launches, expected {lo}..{hi}")
+        for m in MODES:
+            self.total[m] += counts[m]
+        return out
+
+
+class Spy:
+    """Keep the first call of each kernel dispatcher of ``ops/window.py``
+    in a run (inputs and the kernel's output), so that the backward's
+    kernel outputs can be held to the plain versions on the same inputs.
+    The dispatchers still launch the kernels and count them."""
+
+    def __init__(self):
+        self.calls = {}
+        self._saved = {}
+
+    def __enter__(self):
+        for name in PLAIN:
+            orig = getattr(window, name)
+            self._saved[name] = orig
+
+            def spy(inp, grid, opts, _name=name, _orig=orig):
+                out = _orig(inp, grid, opts)
+                if _name not in self.calls:   # copies: callers may update
+                    self.calls[_name] = (inp.clone(), grid.clone(), opts,
+                                         out.clone())
+                return out
+            setattr(window, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._saved.items():
+            setattr(window, name, orig)
+
+    def hold(self, errs, tag, names):
+        for name in names:
+            if name not in self.calls:
+                raise AssertionError(f"{tag}: {name} never ran")
+            inp, grid, opts, out = self.calls[name]
+            e = hold(errs, MODE_OF[name], tag, out,
+                     PLAIN[name](inp, grid, *opts))
+            log(f"{tag}: {MODE_OF[name]} kernel {tuple(out.shape)} vs "
+                f"plain on the same inputs: err {e:.3g}")
+        self.calls.clear()
 
 
 def phase_card() -> str:
@@ -115,48 +221,61 @@ def phase_card() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.load_library()
-    log(f"build: {time.perf_counter() - t0:.1f} s "
+    _build.build_all()
+    for name in _build.SOURCES:
+        _build.load_library(name)
+    log(f"build: {time.perf_counter() - t0:.1f} s, "
+        f"{' '.join(_build.SOURCES)} in parallel "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
 
 
 def phase_kernels(errs) -> None:
-    """Kernel vs plain on the card, value and grad, every template mode."""
+    """Kernel vs plain on the card, every mode and template case."""
     def check(tag, inp, grid, orders, bounds, ex, md):
-        val, grad = cuda_warp.warp_cuda(inp, grid, orders, bounds, ex, md,
-                                        value=True, grad=True)
-        v1, _ = cuda_warp.warp_cuda(inp, grid, orders, bounds, ex, md,
-                                    value=True, grad=False)
-        _, g1 = cuda_warp.warp_cuda(inp, grid, orders, bounds, ex, md,
-                                    value=False, grad=True)
+        opts = (orders, bounds, ex, md)
+        val, grad = cuda_warp.warp_cuda(inp, grid, *opts, value=True,
+                                        grad=True)
+        v1, _ = cuda_warp.warp_cuda(inp, grid, *opts, value=True,
+                                    grad=False)
+        _, g1 = cuda_warp.warp_cuda(inp, grid, *opts, value=False,
+                                    grad=True)
+        hess = cuda_warp.hess_cuda(inp, grid, *opts)
+        ct = cotangent(tuple(grad.shape), 11)
+        push = cuda_warp.push_cuda(inp, grid, *opts)
+        pushgrad = cuda_warp.push_cuda(ct, grid, *opts, deriv=True)
         torch.cuda.synchronize()
         if not (torch.equal(val, v1) and torch.equal(grad, g1)):
             raise AssertionError(f"{tag}: fused and single modes differ")
-        ev, tv = rel_err(val, _pull_impl_torch(inp, grid, orders, bounds,
-                                               ex, md))
-        eg, tg = rel_err(grad, _grad_impl_torch(inp, grid, orders, bounds,
-                                                ex, md))
-        errs["value"] = max(errs["value"], ev)
-        errs["grad"] = max(errs["grad"], eg)
-        if not (ev <= tv and eg <= tg):
-            raise AssertionError(f"{tag}: value err {ev:.3g} (tol "
-                                 f"{tv:.3g}), grad err {eg:.3g} (tol "
-                                 f"{tg:.3g})")
-        return val, ev, eg
+        if not torch.equal(hess, hess.transpose(-1, -2)):
+            raise AssertionError(f"{tag}: hess is not symmetric")
+        return val, {
+            "value": hold(errs, "value", tag, val,
+                          _pull_impl_torch(inp, grid, *opts)),
+            "grad": hold(errs, "grad", tag, grad,
+                         _grad_impl_torch(inp, grid, *opts)),
+            "hess": hold(errs, "hess", tag, hess,
+                         _hess_impl_torch(inp, grid, *opts)),
+            "push": hold(errs, "push", tag, push,
+                         _push_impl_torch(inp, grid, *opts)),
+            "pushgrad": hold(errs, "pushgrad", tag, pushgrad,
+                             _pushgrad_impl_torch(ct, grid, *opts))}
+
+    def fmt(e):
+        return ", ".join(f"{m} {e[m]:.3g}" for m in MODES)
 
     n = 0
-    worst = (0.0, 0.0)
+    worst = {m: 0.0 for m in MODES}
     for o in (0, 1, 2, 3, 5, 7):
         for b in range(7):
             ex = (o + b) % 3
             inp, grid = warp_case(1, 2, (12, 13, 20), 1.5, 10 * o + b)
-            _, ev, eg = check(f"order {o} bound {b} ex {ex}", inp, grid,
-                              (o,) * 3, (b,) * 3, ex, 1.5)
-            worst = (max(worst[0], ev), max(worst[1], eg))
+            _, e = check(f"order {o} bound {b} ex {ex}", inp, grid,
+                         (o,) * 3, (b,) * 3, ex, 1.5)
+            worst = {m: max(worst[m], e[m]) for m in MODES}
             n += 1
     log(f"kernel vs plain: orders 0,1,2,3,5,7 x bounds 0-6 x extrapolate "
-        f"0/1/2 ({n} cases, (1,2,12,13,20), max_disp 1.5): max err value "
-        f"{worst[0]:.3g}, grad {worst[1]:.3g}")
+        f"0/1/2 ({n} cases, (1,2,12,13,20), max_disp 1.5): max err "
+        f"{fmt(worst)}")
     for tag, args in [
             ("odd shape B=2 C=3 (19,24,37), orders (3,2,1), bounds "
              "(0,4,5), max_disp 1.5",
@@ -174,22 +293,22 @@ def phase_kernels(errs) -> None:
              (warp_case(1, 1, (32, 32, 32), 4.0, 5), (3, 3, 3), (3, 3, 3),
               1, 4.0))]:
         (inp, grid), orders, bounds, ex, md = args
-        _, ev, eg = check(tag, inp, grid, orders, bounds, ex, md)
-        log(f"kernel vs plain: {tag}: err value {ev:.3g}, grad {eg:.3g}")
+        _, e = check(tag, inp, grid, orders, bounds, ex, md)
+        log(f"kernel vs plain: {tag}: err {fmt(e)}")
 
-    # a grid that breaks max_disp: the kernel drops the out-of-window taps
-    # exactly as the plain window version does, unlike the full gather
+    # a grid that breaks max_disp: the kernels drop the out-of-window taps
+    # exactly as the plain window versions do, unlike the full gather
     inp, grid = warp_case(1, 2, (20, 21, 22), 1.0, 6, break_contract=4.0)
-    val, ev, eg = check("contract-breaking grid", inp, grid, (3, 3, 3),
-                        (3, 3, 3), 1, 1.0)
+    val, e = check("contract-breaking grid", inp, grid, (3, 3, 3),
+                   (3, 3, 3), 1, 1.0)
     full = ndkernels.pull_core(inp, grid.reshape(1, -1, 3), (3, 3, 3),
                                (3, 3, 3), 1).reshape(val.shape)
     dropped = (val - full).abs().max().item()
     if dropped < 1e-3:
         raise AssertionError("contract-breaking grid dropped no taps")
     log(f"kernel vs plain: contract-breaking grid (20% of displacements "
-        f"x4, max_disp 1.0): err value {ev:.3g}, grad {eg:.3g}; differs "
-        f"from the full gather by {dropped:.3g} (dropped taps)")
+        f"x4, max_disp 1.0): err {fmt(e)}; the pull differs from the full "
+        f"gather by {dropped:.3g} (dropped taps)")
 
     # zero displacement, linear: the warp is the identity
     inp, grid = warp_case(1, 3, (10, 11, 12), 0.0, 7)
@@ -198,50 +317,95 @@ def phase_kernels(errs) -> None:
         raise AssertionError("identity warp is not the identity")
     log("kernel: linear warp by the identity grid returns the input")
 
-    # the whole slice at a small size: card (kernel) vs CPU (plain)
-    cfg = dict(vol_shape=(12, 10, 16), coarse_shape=(4, 4, 4),
-               interpolation=3, bound="dct2", max_disp=1.0)
+    # adjoint identities, accumulated in float64:
+    # <push(u), v> = <u, pull(v)> and <pushgrad(U), v> = <U, grad(v)>
+    for tag, (inp, grid), orders, bounds, ex, md in [
+            ("(2,3,19,24,37) orders (3,2,1) bounds (0,4,5) hist",
+             warp_case(2, 3, (19, 24, 37), 1.5, 8), (3, 2, 1), (0, 4, 5),
+             2, 1.5),
+            ("(1,1,32,32,32) cubic dct2 max_disp 4",
+             warp_case(1, 1, (32, 32, 32), 4.0, 9), (3, 3, 3), (3, 3, 3),
+             1, 4.0)]:
+        opts = (orders, bounds, ex, md)
+        v = cotangent(tuple(inp.shape), 12)
+        U = cotangent(tuple(inp.shape) + (3,), 13)
+        pv, gv = cuda_warp.warp_cuda(v, grid, *opts, value=True, grad=True)
+        for name, a, b in [
+                ("<push(u), v> = <u, pull(v)>",
+                 cuda_warp.push_cuda(inp, grid, *opts).double() * v.double(),
+                 inp.double() * pv.double()),
+                ("<pushgrad(U), v> = <U, grad(v)>",
+                 cuda_warp.push_cuda(U, grid, *opts, deriv=True).double()
+                 * v.double(), U.double() * gv.double())]:
+            lhs, rhs = a.sum().item(), b.sum().item()
+            scale = max(1.0, b.abs().sum().item())
+            if not abs(lhs - rhs) <= TOL * scale:
+                raise AssertionError(f"adjoint {name} {tag}: {lhs} vs {rhs}")
+            log(f"adjoint {name} {tag}: {lhs:.9g} vs {rhs:.9g} "
+                f"(|diff| {abs(lhs - rhs):.3g}, sum|terms| {scale:.4g})")
+
+
+def small_steps(device):
+    """P2-P4 at (12,10,16), coarse 4^3, B=2, C=3, float32 on ``device``:
+    (loss, gradient) pairs of one step each."""
     rng = np.random.default_rng(8)
-    params = 0.5 * rng.standard_normal((2, 4, 4, 4, 3))
-    moving = rng.standard_normal((2, 3, 12, 10, 16))
-    outs = []
-    for device in ("cuda", "cpu"):
-        m = WarpModel(**cfg, batch=2, device=device)
-        m.load_jax_params(params)
-        with torch.no_grad():
-            outs.append(m(torch.tensor(moving, dtype=torch.float32,
-                                       device=device)).cpu())
-    e, t = rel_err(outs[0], outs[1])
-    errs["value"] = max(errs["value"], e)
-    if not e <= t:
-        raise AssertionError(f"small WarpModel card vs CPU: err {e:.3g}")
-    log(f"WarpModel (12,10,16) coarse (4,4,4) B=2 C=3: card kernel path "
-        f"vs CPU plain path err {e:.3g} (tol {t:.3g})")
+    ish = (12, 10, 16)
+    cfg = dict(vol_shape=ish, coarse_shape=(4, 4, 4), interpolation=3,
+               bound="dct2", max_disp=1.0, batch=2, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    moving = torch.tensor(rng.standard_normal((2, 3) + ish), **f32)
+    out = {}
+    model = WarpModel(**cfg)
+    model.load_jax_params(0.5 * rng.standard_normal((2, 4, 4, 4, 3)))
+    loss = torch.mean((model(moving) - 0.9 * moving) ** 2)
+    out["P2 train_step"] = (loss, *torch.autograd.grad(loss,
+                                                       [model.params]))
+    svf = SVFModel(**cfg, steps=3)
+    svf.load_jax_params(0.5 * rng.standard_normal((2, 4, 4, 4, 3)))
+    loss = svf_mse_loss(svf, moving, 0.9 * moving, jac_weight=0.1)
+    out["P3 svf_train_step"] = (loss, *torch.autograd.grad(loss,
+                                                           [svf.params]))
+    inp, grid = (t.to(device) for t in warp_case(2, 3, ish, 1.0, 14))
+    inp.requires_grad_()
+    grid.requires_grad_()
+    loss = (grid_grad(inp, grid, 3, "dct2", True, max_disp=1.0) ** 2).sum()
+    out["P4 grid_grad"] = (loss, *torch.autograd.grad(loss, [inp, grid]))
+    return out
 
 
-def phase_main(card: str, errs, times) -> dict:
-    """The 256^3 main path, with launch counts, checks and timings."""
+def phase_train_small() -> None:
+    card, cpu = small_steps(DEV), small_steps("cpu")
+    for name in card:
+        for k, (a, b) in enumerate(zip(card[name], cpu[name])):
+            e, t = rel_err(a.detach().cpu(), b.detach(), TOL_STEP)
+            what = "loss" if k == 0 else f"gradient {k} {tuple(a.shape)}"
+            if not e <= t:
+                raise AssertionError(f"{name} card vs CPU {what}: err "
+                                     f"{e:.3g} > tol {t:.3g}")
+            log(f"{name} (12,10,16) B=2 C=3: card kernels vs CPU plain "
+                f"{what}: err {e:.3g} (tol {t:.3g})")
+
+
+def phase_main(errs, drive) -> dict:
+    """The 256^3 forward path, with launch counts and checks."""
     model = WarpModel(vol_shape=MAIN_VOL, coarse_shape=MAIN_COARSE,
-                      interpolation=3, bound="dct2", device="cuda")
+                      interpolation=3, bound="dct2", device=DEV)
     rng = np.random.default_rng(0)
     model.load_jax_params(
         0.5 * rng.standard_normal((1,) + MAIN_COARSE + (3,)))
-    moving = torch.randn((1, 1) + MAIN_VOL, device="cuda",
-                         generator=torch.Generator("cuda").manual_seed(0))
+    moving = cotangent((1, 1) + MAIN_VOL, 0)
     opts = ((3, 3, 3), (3, 3, 3), 1, 4.0)
 
     with torch.no_grad():
-        cuda_warp.reset_launches()
-        warped = model(moving)
-        flow = model.dense_flow().contiguous()
-        grad = grid_grad(moving, flow, 3, "dct2", True, max_disp=4.0)
-        torch.cuda.synchronize()
-        launches = dict(cuda_warp.LAUNCHES_BY_MODE)
-        log(f"main path: WarpModel{MAIN_VOL} coarse {MAIN_COARSE} cubic "
-            f"dct2 max_disp 4 + grid_grad: launches {launches} "
-            f"(LAUNCHES {cuda_warp.LAUNCHES})")
-        if launches["value"] < 1 or launches["grad"] < 1:
-            raise AssertionError("the main path did not launch the kernel")
+        def forward():
+            warped = model(moving)
+            flow = model.dense_flow().contiguous()
+            return warped, flow, grid_grad(moving, flow, 3, "dct2", True,
+                                           max_disp=4.0)
+        warped, flow, grad = drive(
+            f"main path: WarpModel{MAIN_VOL} coarse {MAIN_COARSE} cubic "
+            f"dct2 max_disp 4 forward + grid_grad", forward,
+            {"value": (1, 1), "grad": (1, 1)})
         if warped.shape != (1, 1) + MAIN_VOL or \
                 grad.shape != (1, 1) + MAIN_VOL + (3,):
             raise AssertionError(f"shapes {warped.shape}, {grad.shape}")
@@ -250,52 +414,260 @@ def phase_main(card: str, errs, times) -> dict:
         disp = (flow - model.dense_flow(torch.zeros_like(model.params)))
         log(f"main path: |disp| max {disp.abs().max().item():.4f} "
             f"(max_disp 4), warped std {warped.std().item():.4f}")
+        ev = hold(errs, "value", "main path", warped,
+                  _pull_impl_torch(moving, flow, *opts))
+        eg = hold(errs, "grad", "main path", grad,
+                  _grad_impl_torch(moving, flow, *opts))
+        log(f"main path vs plain path on the card: value err {ev:.3g}, "
+            f"grad err {eg:.3g}")
+    return dict(model=model, moving=moving, flow=flow, opts=opts)
 
-        ev, tv = rel_err(warped, _pull_impl_torch(moving, flow, *opts))
-        eg, tg = rel_err(grad, _grad_impl_torch(moving, flow, *opts))
-        errs["value"] = max(errs["value"], ev)
-        errs["grad"] = max(errs["grad"], eg)
-        log(f"main path vs plain path on the card: value err {ev:.3g} "
-            f"(tol {tv:.3g}), grad err {eg:.3g} (tol {tg:.3g})")
-        if not (ev <= tv and eg <= tg):
-            raise AssertionError("main path disagrees with the plain path")
 
-        runs = {
-            "kernel value": (lambda: cuda_warp.warp_cuda(
-                moving, flow, *opts, value=True, grad=False), 20),
-            "plain value": (lambda: _pull_impl_torch(moving, flow, *opts),
-                            3),
-            "kernel grad": (lambda: cuda_warp.warp_cuda(
-                moving, flow, *opts, value=False, grad=True), 20),
-            "plain grad": (lambda: _grad_impl_torch(moving, flow, *opts),
-                           3),
-            "WarpModel forward, kernel path": (lambda: model(moving), 10),
-            "WarpModel forward, plain path": (lambda: _pull_impl_torch(
-                moving, model.dense_flow(), *opts), 3),
-        }
-        for name, (fn, reps) in runs.items():
+def decreasing(name, losses):
+    if not all(np.isfinite(losses)) or \
+            not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{name}: losses {losses} are not finite and "
+                             f"decreasing")
+    log(f"{name}: losses {[f'{x:.9g}' for x in losses]} (finite, "
+        f"decreasing)")
+
+
+def phase_train_main(errs, drive) -> dict:
+    """P2-P4 at 256^3 with launch counts, losses, and the backward's
+    kernel outputs against the plain versions on the same inputs."""
+    rng = np.random.default_rng(0)
+    moving = torch.tensor(rng.standard_normal((1, 1) + MAIN_VOL),
+                          dtype=torch.float32, device=DEV)
+    fixed = 0.9 * moving
+    model = WarpModel(vol_shape=MAIN_VOL, coarse_shape=MAIN_COARSE,
+                      interpolation=3, bound="dct2", max_disp=4.0,
+                      device=DEV)
+    model.load_jax_params(np.full((1,) + MAIN_COARSE + (3,), 0.01))
+    with Spy() as spy:
+        losses = drive(
+            f"P2: 3 x train_step, WarpModel{MAIN_VOL} coarse "
+            f"{MAIN_COARSE} cubic dct2 max_disp 4",
+            lambda: [train_step(model, moving, fixed).item()
+                     for _ in range(3)],
+            {"value": (3, 3), "grad": (3, 3), "push": (0, 0),
+             "pushgrad": (0, 0), "hess": (0, 0)})
+    decreasing("P2 train_step", losses)
+    spy.hold(errs, "P2 backward", ["_grad"])
+
+    rng = np.random.default_rng(0)
+    svf = SVFModel(vol_shape=MAIN_VOL, coarse_shape=MAIN_COARSE,
+                   interpolation=3, bound="dct2", max_disp=4.0, steps=6,
+                   device=DEV)
+    svf.load_jax_params(0.5 * rng.standard_normal((1,) + MAIN_COARSE
+                                                  + (3,)))
+    with Spy() as spy:
+        losses = drive(
+            f"P3: 3 x svf_train_step jac_weight 0.1, SVFModel{MAIN_VOL} "
+            f"coarse {MAIN_COARSE} cubic dct2 max_disp 4 steps 6",
+            lambda: [svf_train_step(svf, moving, fixed,
+                                    jac_weight=0.1).item()
+                     for _ in range(3)],
+            {"value": (3, 10 ** 6), "grad": (3, 10 ** 6),
+             "push": (3, 10 ** 6), "pushgrad": (3, 10 ** 6)})
+    decreasing("P3 svf_train_step", losses)
+    spy.hold(errs, "P3 backward", ["_push", "_pushgrad", "_grad"])
+    with torch.no_grad():
+        det = jacobian_det(svf.flow())
+    lo, hi = det.min().item(), det.max().item()
+    log(f"P3: det J after the steps: min {lo:.6g}, max {hi:.6g}")
+    if not lo > 0:
+        raise AssertionError("P3: det J is not positive everywhere")
+
+    rng = np.random.default_rng(0)
+    v = torch.tensor(rng.standard_normal((1,) + MAIN_VOL),
+                     dtype=torch.float32, device=DEV)
+    ident = np.stack(np.meshgrid(*[np.arange(n) for n in MAIN_VOL],
+                                 indexing="ij"), -1)
+    g = torch.tensor(ident + rng.uniform(-2, 2, ident.shape),
+                     dtype=torch.float32, device=DEV)
+
+    def p4():
+        out = []
+        for _ in range(3):
+            vv, gg = v.requires_grad_(), g.requires_grad_()
+            loss = (grid_grad(vv, gg, 3, "dct2", True, max_disp=2.0)
+                    ** 2).sum()
+            dv, dg = torch.autograd.grad(loss, [vv, gg])
+            with torch.no_grad():
+                v.sub_(1e-3 * dv)
+                g.sub_(1e-9 * dg)
+            out.append(loss.item())
+        return out
+    with Spy() as spy:
+        losses = drive(
+            f"P4: 3 x gradient of sum(grid_grad(v, g, cubic, dct2, "
+            f"max_disp 2)**2) in v and g, {MAIN_VOL}", p4,
+            {"grad": (3, 3), "pushgrad": (3, 3), "hess": (3, 3),
+             "value": (0, 0), "push": (0, 0)})
+    v.requires_grad_(False)
+    g.requires_grad_(False)
+    decreasing("P4 grid_grad", losses)
+    spy.hold(errs, "P4 backward", ["_pushgrad", "_hess"])
+    return dict(model=model, svf=svf, moving=moving, fixed=fixed)
+
+
+def bound(nbytes, ops):
+    """(least ms, what bounds it): bytes over the HBM rate or float32
+    operations over the card's peak, the larger."""
+    ms_b = nbytes / HBM_BYTES_PER_S * 1e3
+    ms_o = ops / FP32_OPS_PER_S * 1e3
+    return (ms_b, "bytes") if ms_b >= ms_o else (ms_o, "operations")
+
+
+def phase_times(card, errs, main, train) -> dict:
+    """256^3 cubic dct2 max_disp 4, C=1: each kernel and its plain
+    version, the two train steps; median CUDA-event times and peak
+    memory beside the card's name and power limit."""
+    moving, flow, opts = main["moving"], main["flow"], main["opts"]
+    ct = cotangent((1, 1) + MAIN_VOL + (3,), 15)
+    n = moving.numel()
+    T = 4  # taps per axis at cubic order
+    # (bytes moved at least: inputs read once, outputs written once;
+    #  float32 operations: FMAs as 2)
+    work = {
+        "value": (4 * (n + 3 * n + n), 2 * n * (T**3 + T**2 + T)),
+        "grad": (4 * (n + 3 * n + 3 * n),
+                 2 * n * (2 * T**3 + 3 * T**2 + 3 * T)),
+        "hess": (4 * (n + 3 * n + 9 * n),
+                 2 * n * (3 * T**3 + 6 * T**2 + 6 * T)),
+        "push": (4 * (n + 3 * n + n), n * (2 * T**3 + T**2)),
+        "pushgrad": (4 * (3 * n + 3 * n + n), n * (4 * T**3 + 4 * T**2)),
+    }
+    runs = {
+        "value": (lambda: cuda_warp.warp_cuda(moving, flow, *opts,
+                                              value=True, grad=False)[0],
+                  lambda: _pull_impl_torch(moving, flow, *opts)),
+        "grad": (lambda: cuda_warp.warp_cuda(moving, flow, *opts,
+                                             value=False, grad=True)[1],
+                 lambda: _grad_impl_torch(moving, flow, *opts)),
+        "hess": (lambda: cuda_warp.hess_cuda(moving, flow, *opts),
+                 lambda: _hess_impl_torch(moving, flow, *opts)),
+        "push": (lambda: cuda_warp.push_cuda(moving, flow, *opts),
+                 lambda: _push_impl_torch(moving, flow, *opts)),
+        "pushgrad": (lambda: cuda_warp.push_cuda(ct, flow, *opts,
+                                                 deriv=True),
+                     lambda: _pushgrad_impl_torch(ct, flow, *opts)),
+    }
+    times = {}
+    with torch.no_grad():
+        for mode, (kern, plain) in runs.items():
+            k_out, p_out = kern(), plain()
+            hold(errs, mode, f"256^3 {mode}", k_out, p_out)
+            del k_out, p_out
+            k_ms, p_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
+            k_mib, p_mib = peak_mib(kern), peak_mib(plain)
+            b_ms, b_by = bound(*work[mode])
+            times[mode] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                               bound_by=b_by)
+            log(f"time {mode} {MAIN_VOL} C=1 cubic dct2 max_disp 4: kernel "
+                f"{k_ms:.3f} ms (median of 20, peak +{k_mib:.0f} MiB), "
+                f"plain {p_ms:.3f} ms (median of 3, peak +{p_mib:.0f} "
+                f"MiB), bound {b_ms:.3f} ms ({b_by}: "
+                f"{work[mode][0] / 1e6:.1f} MB, "
+                f"{work[mode][1] / 1e9:.2f} GFLOP) [{card}]")
+        p1 = cuda_warp.push_cuda(moving, flow, *opts)
+        spread = max((cuda_warp.push_cuda(moving, flow, *opts) - p1)
+                     .abs().max().item() for _ in range(3))
+        log(f"push run-to-run: largest difference over 3 reruns at "
+            f"{MAIN_VOL} {spread:.3g} (max |push| "
+            f"{p1.abs().max().item():.4g}; atomics sum in a varying order)")
+        del p1
+
+    model = main["model"]
+    for name, fn, reps in [
+            ("WarpModel forward, kernel path", lambda: model(moving), 10),
+            ("WarpModel forward, plain path", lambda: _pull_impl_torch(
+                moving, model.dense_flow(), *opts), 3)]:
+        with torch.no_grad():
             ms = cuda_ms(fn, reps)
             mib = peak_mib(fn)
-            times[name] = ms
-            log(f"time {name} {MAIN_VOL}: {ms:.3f} ms (median of {reps}), "
-                f"peak +{mib:.0f} MiB over live tensors [{card}]")
-    return launches
+        times[name] = ms
+        log(f"time {name} {MAIN_VOL}: {ms:.3f} ms (median of {reps}), "
+            f"peak +{mib:.0f} MiB over live tensors [{card}]")
+    model, svf = train["model"], train["svf"]
+    moving, fixed = train["moving"], train["fixed"]
+    for name, fn, reps in [
+            ("train_step (WarpModel, kernel path)",
+             lambda: train_step(model, moving, fixed), 5),
+            ("svf_train_step jac_weight 0.1 (SVFModel steps 6, kernel path)",
+             lambda: svf_train_step(svf, moving, fixed, jac_weight=0.1), 5)]:
+        ms = cuda_ms(fn, reps)
+        mib = peak_mib(fn)
+        times[name] = ms
+        log(f"time {name} {MAIN_VOL}: {ms:.3f} ms (median of {reps}), "
+            f"peak +{mib:.0f} MiB over live tensors [{card}]")
+    return times
+
+
+def short(kernel_name: str) -> str:
+    for prefix in ("void ", "(anonymous namespace)::", "at::native::"):
+        kernel_name = kernel_name.replace(prefix, "")
+    return kernel_name[:60]
+
+
+def phase_profile(train) -> None:
+    """Device busy time per step, its idle share and the heaviest kernels
+    of ``train_step`` and ``svf_train_step`` at 256^3 (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    model, svf = train["model"], train["svf"]
+    moving, fixed = train["moving"], train["fixed"]
+    for name, fn, reps in [
+            ("train_step", lambda: train_step(model, moving, fixed), 5),
+            ("svf_train_step jac_weight 0.1",
+             lambda: svf_train_step(svf, moving, fixed, jac_weight=0.1), 3)]:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / reps * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / reps / 1e3
+        if busy == 0:
+            log(f"profile {name}: no device time in the trace (not "
+                f"measured)")
+            continue
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        ops = sum(e.count for e in kernels) // reps
+        log(f"profile {name} {MAIN_VOL}: wall {wall:.3f} ms/step (profiler "
+            f"on), device busy {busy:.3f} ms/step, idle "
+            f"{100 * (1 - busy / wall):.1f} %, {ops} device ops/step; "
+            f"heaviest: " + "; ".join(
+                f"{short(e.key)} {e.self_device_time_total / reps / 1e3:.3f}"
+                f" ms x{e.count // reps}" for e in top))
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     card = phase_card()
     phase_build()
-    errs = {"value": 0.0, "grad": 0.0}
-    times = {}
+    errs = {m: 0.0 for m in MODES}
+    drive = Drive()
     phase_kernels(errs)
-    launches = phase_main(card, errs, times)
+    phase_train_small()
+    main_path = phase_main(errs, drive)
+    train = phase_train_main(errs, drive)
+    times = phase_times(card, errs, main_path, train)
+    phase_profile(train)
+    sources = {"push": "push.cu", "pushgrad": "push.cu"}
+    lines = {"push": 619, "pushgrad": 619}
     kernels = [
-        {"name": f"warp_{mode}", "route": "cuda",
-         "source": "interpol_tpu_torch/csrc/warp.cu",
-         "replaces": "interpol_tpu/ops/pallas_warp.py:160",
-         "launches": launches[mode], "max_abs_err": errs[mode],
-         "ms": times[f"kernel {mode}"], "plain_ms": times[f"plain {mode}"]}
-        for mode in ("value", "grad")]
+        {"name": m if m in sources else f"warp_{m}", "route": "cuda",
+         "source": f"interpol_tpu_torch/csrc/{sources.get(m, 'warp.cu')}",
+         "replaces": f"interpol_tpu/ops/pallas_warp.py:{lines.get(m, 160)}",
+         "launches": drive.total[m], "max_abs_err": errs[m],
+         **times[m], "library_ms": None}
+        for m in MODES]
+    log(f"total run time {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

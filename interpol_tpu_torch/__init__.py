@@ -1,25 +1,39 @@
 """interpol_tpu_torch — PyTorch/CUDA port of interpol_tpu.
 
-The forward dense-warp path, ported from the JAX package beside it
+The dense-warp path, ported from the JAX package beside it
 (``interpol_tpu/``, the reference): options and primitives (boundary
-folding, B-spline taps), the plain gather and the dense-warp window tier,
-the separable ``resize``, ``grid_pull`` / ``grid_grad`` with the grid
-constructors, and the registration ``WarpModel`` forward.  CPU tensors run
-plain PyTorch; CUDA tensors run the hand-written Hopper kernel
-(``csrc/warp.cu``), built with nvcc at first use.  There is no backend
-switch: the tensors' device decides.
+folding, B-spline taps), the plain gather and the dense-warp window tier
+with its hand-wired adjoints (``torch.autograd.Function``s), the separable
+``resize``, ``grid_pull`` / ``grid_push`` / ``grid_count`` / ``grid_grad``
+with the grid constructors, the deformation-field algebra
+(``ops/flow.py``), and the registration models ``WarpModel`` and
+``SVFModel`` with their train steps.  CPU tensors run plain PyTorch; CUDA
+tensors run the hand-written Hopper kernels (``csrc/warp.cu``,
+``csrc/push.cu``), built with nvcc at first use.  There is no backend
+switch: the tensors' device decides, and the models live on the card
+unless the caller asks for the CPU.
 """
 from . import options  # noqa: F401
 from . import models, ops, utils  # noqa: F401
 from .options import BoundType, ExtrapolateType, InterpolationType  # noqa: F401
 from .ops.api import (  # noqa: F401
-    grid_pull, grid_grad, identity_grid, add_identity_grid, affine_grid,
+    grid_pull, grid_push, grid_count, grid_grad, pull, push, count,
+    identity_grid, add_identity_grid, affine_grid,
+)
+from .ops.flow import (  # noqa: F401
+    compose_disp, exp_disp, disp_jacobian, jacobian_det, invert_disp,
 )
 from .ops.resize import resize  # noqa: F401
-from .models.warp import WarpModel, mse_loss, params_from_jax  # noqa: F401
+from .models.warp import (  # noqa: F401
+    WarpModel, mse_loss, params_from_jax, train_step,
+)
+from .models.svf import SVFModel, svf_mse_loss, svf_train_step  # noqa: F401
 
 __all__ = [
-    "grid_pull", "grid_grad", "identity_grid", "add_identity_grid",
-    "affine_grid", "resize", "WarpModel", "mse_loss", "params_from_jax",
+    "grid_pull", "grid_push", "grid_count", "grid_grad", "pull", "push",
+    "count", "identity_grid", "add_identity_grid", "affine_grid",
+    "compose_disp", "exp_disp", "disp_jacobian", "jacobian_det",
+    "invert_disp", "resize", "WarpModel", "mse_loss", "params_from_jax",
+    "train_step", "SVFModel", "svf_mse_loss", "svf_train_step",
     "BoundType", "ExtrapolateType", "InterpolationType", "options",
 ]

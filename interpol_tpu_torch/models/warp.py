@@ -1,6 +1,6 @@
-"""Flagship model: dense-displacement image registration (forward path).
+"""Flagship model: dense-displacement image registration.
 
-PyTorch port of ``interpol_tpu/models/warp.py:25-121``.  Coarse
+PyTorch port of ``interpol_tpu/models/warp.py``.  Coarse
 displacement control points are upsampled to a dense flow by a separable
 spline ``resize``, clamped with a tanh to the displacement budget, turned
 into a sampling grid, and the moving volume is warped by ``grid_pull(...,
@@ -10,8 +10,11 @@ The JAX model is a ``NamedTuple`` config plus a ``(B, *coarse, D)``
 parameter array; here the config fields are constructor arguments and the
 parameters an ``nn.Parameter``.  ``WarpModel(**jax_model._asdict(),
 device=...)`` followed by ``load_jax_params(params)`` computes what the JAX
-model computes.  The training step waits for the adjoint kernels: on CUDA,
-run the forward under ``torch.no_grad()``.
+model computes.  :func:`train_step` is one SGD step on :func:`mse_loss`;
+its backward runs the hand-wired adjoints of ``ops/window.py`` (on CUDA,
+the gradient kernel for the grid cotangent; no push, since the moving
+image needs no gradient).  The model lives on the card unless the caller
+passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -24,10 +27,10 @@ from torch import nn
 from ..ops.api import add_identity_grid, grid_pull
 from ..ops.resize import resize
 
-__all__ = ["WarpModel", "mse_loss", "params_from_jax"]
+__all__ = ["WarpModel", "mse_loss", "train_step", "params_from_jax"]
 
 
-def params_from_jax(params: np.ndarray, *, device=None,
+def params_from_jax(params: np.ndarray, *, device="cuda",
                     dtype=torch.float32) -> torch.Tensor:
     """JAX ``(B, *coarse, D)`` control points -> torch tensor (same
     layout)."""
@@ -49,7 +52,7 @@ class WarpModel(nn.Module):
                  coarse_shape: Tuple[int, ...], interpolation: int = 3,
                  bound: str = "dct2", max_disp: float = 4.0,
                  tile_spread=None, coarse_clamp: bool = False, *,
-                 batch: int = 1, device=None, dtype=torch.float32):
+                 batch: int = 1, device="cuda", dtype=torch.float32):
         super().__init__()
         if isinstance(tile_spread, str) and tile_spread != "auto":
             raise ValueError(f"tile_spread={tile_spread!r}")
@@ -126,3 +129,17 @@ def mse_loss(model: WarpModel, moving: torch.Tensor, fixed: torch.Tensor,
     """Mean squared error between the warped moving image and ``fixed``."""
     warped = model.warp(moving, params)
     return torch.mean((warped - fixed) ** 2)
+
+
+def train_step(model: WarpModel, moving: torch.Tensor, fixed: torch.Tensor,
+               lr: float = 0.1) -> torch.Tensor:
+    """One SGD step on :func:`mse_loss`; returns the loss before the step.
+
+    The counterpart of the JAX ``train_step``, which returns ``(params -
+    lr * g, loss)``: here the parameters are updated in place, under
+    ``torch.no_grad()``."""
+    loss = mse_loss(model, moving, fixed)
+    (g,) = torch.autograd.grad(loss, [model.params])
+    with torch.no_grad():
+        model.params -= lr * g
+    return loss.detach()

@@ -1,11 +1,14 @@
 """Build the CUDA sources under ``csrc/`` at first use and load them.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain ``extern "C"`` interface, which is loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds).  The library lands in
-``interpol_tpu_torch/_build/`` under a name keyed by a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is reused.
-A failed build raises with nvcc's output; nothing falls back.
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` into a shared
+library with a plain ``extern "C"`` interface, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  :func:`build_all` starts one
+``nvcc`` per source at once and waits for all of them.  The libraries
+land in ``interpol_tpu_torch/_build/`` under names keyed by a hash of
+every file under ``csrc/`` (``*.cu`` and the shared ``*.cuh`` headers)
+and of the flags, so an edited source or header is rebuilt and an
+unchanged tree is reused.  A failed build raises with nvcc's output;
+nothing falls back.
 """
 from __future__ import annotations
 
@@ -16,17 +19,20 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Dict
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "load_library"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "SOURCES", "load_library",
+           "build_all"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+SOURCES = ("warp", "push")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_loaded = {}
+_loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -43,37 +49,68 @@ def _nvcc() -> str:
     return path
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernels' shared library.
-
-    Returns the ``ctypes.CDLL``; ``BUILD_DIR / 'libinterpol_<hash>.log'`` keeps
-    nvcc's report (``-Xptxas -v``: registers and spills per kernel)."""
-    sources = sorted(_CSRC.glob("*.cu"))
+def _tree_key() -> str:
+    """Hash of every file under ``csrc/`` and of the flags."""
     key = hashlib.sha256()
-    for f in sources:
+    for f in sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu",
+                                                               ".cuh")):
         key.update(f.name.encode())
         key.update(f.read_bytes())
     key.update(" ".join(NVCC_FLAGS).encode())
-    name = f"libinterpol_{key.hexdigest()[:16]}"
-    if name in _loaded:
-        return _loaded[name]
-    out_dir = BUILD_DIR
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / f"{name}.so"
+    return key.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}_{_tree_key()}.so"
+
+
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` into a private file (renamed once
+    it is whole, so concurrent builds never load a half-written one)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, cmd, tmp
+
+
+def _finish(name: str, proc, cmd, tmp) -> None:
+    out, err = proc.communicate()
+    lib_path = _lib_path(name)
+    lib_path.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out
+                                            + err)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{err}")
+    os.replace(tmp, lib_path)
+
+
+def build_all() -> None:
+    """Build every source that has no library yet, all nvcc at once.
+    ``BUILD_DIR / 'lib<name>_<hash>.log'`` keeps nvcc's report
+    (``-Xptxas -v``: registers and spills per kernel)."""
+    jobs = [(name, *_start(name)) for name in SOURCES
+            if not _lib_path(name).exists()]
+    errors = []
+    for job in jobs:
+        try:
+            _finish(*job)
+        except RuntimeError as e:   # wait for every nvcc, then report
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load it."""
+    lib_path = _lib_path(name)
+    if str(lib_path) in _loaded:
+        return _loaded[str(lib_path)]
     if not lib_path.exists():
-        # build to a private name, then rename: concurrent builds
-        # (test workers) never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / f"{name}.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, lib_path)
+        _finish(name, *_start(name))
     lib = ctypes.CDLL(str(lib_path))
-    _loaded[name] = lib
+    _loaded[str(lib_path)] = lib
     return lib

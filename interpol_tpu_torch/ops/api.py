@@ -1,14 +1,17 @@
 """User-facing API: shape engine, option normalization, grid constructors.
 
-PyTorch port of ``interpol_tpu/ops/api.py:43-177, 396-424, 452-497``, with
+PyTorch port of ``interpol_tpu/ops/api.py:43-177, 338-424, 452-503``, with
 the same signatures, defaults and layouts: images ``(..., [C], *sp)``,
 grids ``(..., *sp, D)`` in voxel coordinates (not torch's normalized
 [-1, 1]), ``grid_grad`` output ``(..., [C], *sp, D)``.  Batch dimensions of
 image and grid broadcast against each other.
 
 ``max_disp`` selects the dense-warp path (``ops/window.py``: the CUDA
-kernel for CUDA tensors, the plain version for CPU tensors); without it
-``grid_pull`` / ``grid_grad`` run the plain gather of ``ops/ndkernels.py``.
+kernels for CUDA tensors, the plain versions for CPU tensors), which is
+differentiable in image and grid through hand-wired adjoints; without it
+``grid_pull`` / ``grid_grad`` run the plain gather of ``ops/ndkernels.py``
+(differentiated by PyTorch's autograd), and ``grid_push`` /
+``grid_count`` raise until the generic push core is ported.
 ``tile_spread`` is accepted and ignored (full window), as the JAX
 package's XLA tier ignores it.  Not ported yet, and raising
 ``NotImplementedError``: label maps (``classes=`` or integer input),
@@ -25,21 +28,35 @@ from ..utils.shapes import expanded_shape
 from . import ndkernels as _nd
 from . import window as _window
 
-__all__ = ["grid_pull", "grid_grad", "identity_grid", "add_identity_grid",
-           "affine_grid"]
+__all__ = ["grid_pull", "grid_push", "grid_count", "grid_grad",
+           "identity_grid", "add_identity_grid", "affine_grid", "pull",
+           "push", "count"]
 
 
 # ------------------------------------------------- shape engine
 
-def _preproc(grid, inp):
+def _preproc(grid, inp=None, mode=None):
     """Broadcast/reshape user layouts ``(..., [C], *sp)`` / ``(..., *sp, D)``
-    to kernel layouts ``(B, C, *sp)`` / ``(B, *sp, D)``."""
+    to kernel layouts ``(B, C, *sp)`` / ``(B, *sp, D)``.  Without ``inp``
+    (``grid_count``) only the grid is reshaped; ``mode="push"`` broadcasts
+    the spatial shapes of image and grid against each other."""
     D = grid.shape[-1]
+    if inp is None:
+        spatial = tuple(grid.shape[-D - 1:-1])
+        batch = tuple(grid.shape[:-D - 1])
+        grid = grid.reshape((-1,) + spatial + (D,))
+        info = dict(batch=batch, channel=(1,) if batch else (), dim=D)
+        return grid, info
+
     grid_spatial = tuple(grid.shape[-D - 1:-1])
     grid_batch = tuple(grid.shape[:-D - 1])
     inp_spatial = tuple(inp.shape[-D:])
     channel = 0 if inp.ndim == D else inp.shape[-D - 1]
     inp_batch = tuple(inp.shape[:-D - 1])
+
+    if mode == "push":
+        grid_spatial = inp_spatial = expanded_shape(grid_spatial,
+                                                    inp_spatial)
 
     batch = expanded_shape(grid_batch, inp_batch)
     grid = torch.broadcast_to(grid, batch + grid_spatial + (D,))
@@ -137,6 +154,63 @@ def grid_pull(input, grid, interpolation="linear", bound="zero",
     return _postproc(out, info, "pull")
 
 
+def _dense_only(fn, max_disp, shape, grid):
+    """grid_push / grid_count run the dense-warp path only."""
+    if max_disp is None or shape != tuple(grid.shape[1:-1]):
+        raise NotImplementedError(
+            f"{fn} without max_disp, or onto another shape than the "
+            f"grid's, needs the generic push core, which is not ported "
+            f"yet (ROADMAP queue 1 item 2)")
+
+
+def grid_push(input, grid, shape=None, interpolation="linear",
+              bound="zero", extrapolate=False, prefilter=False, *,
+              max_disp=None, tile_spread=None, check_spread=False):
+    """Splat an image at the positions of a deformation field (the adjoint
+    of :func:`grid_pull`).
+
+    input : (..., [channel], *inshape) values at the grid's sites
+    grid : (..., *inshape, dim) tensor of voxel coordinates
+    shape : output spatial shape; only the grid's own shape is ported
+    max_disp : required (the dense-warp path); other options as
+        :func:`grid_pull`.
+
+    Returns (..., [channel], *shape).
+    """
+    input = torch.as_tensor(input)
+    grid = torch.as_tensor(grid)
+    D = grid.shape[-1]
+    orders, bounds, ex = normalize_options(interpolation, bound,
+                                           extrapolate, D)
+    _not_ported(input, None, prefilter, check_spread, tile_spread,
+                max_disp)
+    grid, inp, info = _preproc(grid, input, mode="push")
+    shape = tuple(inp.shape[2:]) if shape is None \
+        else tuple(int(s) for s in shape)
+    _dense_only("grid_push", max_disp, shape, grid)
+    out = _window.push_window(inp, grid, orders, bounds, ex,
+                              _md_norm(max_disp))
+    return _postproc(out, info, "push")
+
+
+def grid_count(grid, shape=None, interpolation="linear", bound="zero",
+               extrapolate=False, *, max_disp=None):
+    """Splat unit weights: the density of the deformation field,
+    (..., *shape).  ``max_disp`` is required (the dense-warp path)."""
+    grid = torch.as_tensor(grid)
+    D = grid.shape[-1]
+    orders, bounds, ex = normalize_options(interpolation, bound,
+                                           extrapolate, D)
+    grid, info = _preproc(grid)
+    shape = tuple(grid.shape[1:-1]) if shape is None \
+        else tuple(int(s) for s in shape)
+    _dense_only("grid_count", max_disp, shape, grid)
+    ones = grid.new_ones((grid.shape[0], 1) + shape)
+    out = _window.push_window(ones, grid, orders, bounds, ex,
+                              _md_norm(max_disp))
+    return _postproc(out, info, "count")
+
+
 def grid_grad(input, grid, interpolation="linear", bound="zero",
               extrapolate=False, prefilter=False, *, max_disp=None,
               tile_spread=None, check_spread=False):
@@ -199,3 +273,8 @@ def affine_grid(mat: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     lin = mat[..., :D, :D].reshape(batch + (1,) * D + (D, D))
     off = mat[..., :D, -1].reshape(batch + (1,) * D + (D,))
     return (lin @ grid[..., None])[..., 0] + off
+
+
+pull = grid_pull
+push = grid_push
+count = grid_count

@@ -1,15 +1,22 @@
-"""Wrapper of the dense-warp CUDA kernel (``csrc/warp.cu``).
+"""Wrappers of the dense-warp CUDA kernels (``csrc/warp.cu``,
+``csrc/push.cu``).
 
-The Hopper counterpart of ``interpol_tpu/ops/pallas_warp.py::_warp_kernel``
-in value and gradient modes (see the note at the top of ``csrc/warp.cu``).
-Its plain PyTorch version is ``ops/window.py::_pull_impl_torch`` /
-``_grad_impl_torch``, a different formulation (shift-FMA), so comparing the
-two on the card is a real check.
+The Hopper counterparts of ``interpol_tpu/ops/pallas_warp.py``:
+``_warp_kernel`` in value, grad and hess modes (``warp_cuda``,
+``hess_cuda``) and ``_push_kernel`` in plain and deriv modes
+(``push_cuda``); see the notes at the top of the sources.  Their plain
+PyTorch versions are ``ops/window.py``'s ``_pull_impl_torch``,
+``_grad_impl_torch``, ``_hess_impl_torch``, ``_push_impl_torch`` and
+``_pushgrad_impl_torch``, a different formulation (shift-FMA), so
+comparing the two on the card is a real check.
 
-``warp_cuda`` takes CUDA float32 contiguous tensors only and raises on
-anything else; it never falls back to the plain version.  Each launch adds
-one to ``LAUNCHES`` (and to ``LAUNCHES_BY_MODE``), so a run can show that
-it went through the kernel.
+Each wrapper takes CUDA float32 contiguous tensors only and raises on
+anything else; it never falls back to the plain version.  It also raises
+when grad mode is on and an input requires grad: a direct call would lose
+that gradient (the autograd Functions of ``ops/window.py`` call the
+wrappers with detached tensors).  Each launch adds one to ``LAUNCHES``
+and to its mode in ``LAUNCHES_BY_MODE``, so a run can show that it went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -21,10 +28,13 @@ import torch
 
 from .window import _md_tuple, window_range
 
-__all__ = ["warp_cuda", "LAUNCHES", "LAUNCHES_BY_MODE", "reset_launches"]
+__all__ = ["warp_cuda", "hess_cuda", "push_cuda", "LAUNCHES",
+           "LAUNCHES_BY_MODE", "reset_launches"]
 
 LAUNCHES = 0
-LAUNCHES_BY_MODE: Dict[str, int] = {"value": 0, "grad": 0, "value+grad": 0}
+LAUNCHES_BY_MODE: Dict[str, int] = {
+    "value": 0, "grad": 0, "value+grad": 0, "hess": 0, "push": 0,
+    "pushgrad": 0}
 
 
 def reset_launches() -> None:
@@ -34,8 +44,14 @@ def reset_launches() -> None:
         LAUNCHES_BY_MODE[k] = 0
 
 
+def _count(mode: str) -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    LAUNCHES_BY_MODE[mode] += 1
+
+
 class _WarpParams(ctypes.Structure):
-    """Mirror of ``struct WarpParams`` in ``csrc/warp.cu``."""
+    """Mirror of ``struct WarpParams`` in ``csrc/spline_taps.cuh``."""
     _fields_ = [
         ("B", ctypes.c_longlong),
         ("C", ctypes.c_longlong),
@@ -50,83 +66,73 @@ class _WarpParams(ctypes.Structure):
     ]
 
 
-_fn = None
+_fns = {}
 
 
-def _entry():
-    global _fn
-    if _fn is None:
+def _entry(name: str):
+    """``interpol_warp`` (csrc/warp.cu) or ``interpol_push``
+    (csrc/push.cu), built at first use."""
+    if name not in _fns:
         from ._build import load_library
-        fn = load_library().interpol_warp
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.POINTER(_WarpParams),
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        if name == "warp":
+            fn = load_library("warp").interpol_warp
+            fn.argtypes = [vp, vp, vp, vp, vp, ctypes.POINTER(_WarpParams),
+                           i, i, i, vp]
+        else:
+            fn = load_library("push").interpol_push
+            fn.argtypes = [vp, vp, vp, ctypes.POINTER(_WarpParams), i, vp]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
-def _lift3(inp, grid, orders, bounds, md):
+def _lift3(inp, grid, orders, bounds, md, deriv=False):
     """Lift a D<3 dense warp to 3-D with leading dummy axes (order 0, zero
     displacement, replicate bound, window span 1), as the JAX package's
-    ``window._lift3`` does.  Copies the grid once."""
+    ``window._lift3`` does.  ``deriv``: ``inp`` carries a trailing
+    per-axis component dim (pushgrad cotangents), zero on the dummy axes.
+    Copies the grid once."""
     D = grid.shape[-1]
     nd = 3 - D
     B = grid.shape[0]
     zeros = grid.new_zeros(grid.shape[:-1] + (nd,))
     grid = torch.cat([zeros, grid], dim=-1)
     grid = grid.reshape((B,) + (1,) * nd + tuple(grid.shape[1:]))
-    inp = inp.reshape(tuple(inp.shape[:2]) + (1,) * nd
-                      + tuple(inp.shape[2:]))
+    lead = tuple(inp.shape[:2]) + (1,) * nd
+    if deriv:
+        inp = torch.cat([inp.new_zeros(inp.shape[:-1] + (nd,)), inp], -1)
+    inp = inp.reshape(lead + tuple(inp.shape[2:]))
     return (inp, grid, (0,) * nd + tuple(orders), (1,) * nd + tuple(bounds),
             (0.0,) * nd + md, nd)
 
 
-def warp_cuda(inp: torch.Tensor, grid: torch.Tensor,
-              orders: Sequence[int], bounds: Sequence[int],
-              extrapolate: int, max_disp, value: bool = True,
-              grad: bool = False
-              ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Dense-warp pull and/or spatial gradient on the card.
-
-    inp (B, C, *ishape) and grid (B, *ishape, D), D in 1..3, both CUDA,
-    float32, contiguous, without ``requires_grad`` (the adjoint kernels are
-    not ported yet).  Returns ``(val, grad)``: ``val`` (B, C, *ishape) if
-    ``value`` else None, ``grad`` (B, C, *ishape, D) if ``grad`` else None.
-    Same semantics as ``window._pull_impl_torch`` / ``_grad_impl_torch``.
-    """
-    global LAUNCHES
-    if not (value or grad):
-        raise ValueError("nothing to compute")
-    _check_inputs(inp, grid)
+def _launch_setup(name, inp, grid, orders, bounds, extrapolate, max_disp,
+                  deriv=False):
+    """Check the inputs, lift 1-D/2-D to 3-D and fill the kernel
+    parameters.  Returns (inp3, grid3, params, nd), or None when there is
+    nothing to compute."""
+    _check_inputs(name, inp, grid, deriv)
     D = grid.shape[-1]
     orders = tuple(int(o) for o in orders)
     bounds = tuple(int(b) for b in bounds)
     if len(orders) != D or len(bounds) != D:
-        raise ValueError("warp_cuda: one order and one bound per axis")
+        raise ValueError(f"{name}: one order and one bound per axis")
     if not all(0 <= o <= 7 for o in orders) \
             or not all(0 <= b <= 6 for b in bounds):
-        raise ValueError(f"warp_cuda: orders {orders} / bounds {bounds} "
+        raise ValueError(f"{name}: orders {orders} / bounds {bounds} "
                          f"out of range")
     md = _md_tuple(max_disp, D)
-
     B, C = inp.shape[:2]
-    ishape = tuple(inp.shape[2:])
-    val = inp.new_empty((B, C) + ishape) if value else None
-    gout = inp.new_empty((B, C) + ishape + (D,)) if grad else None
     nd = 0
     if D < 3:
         inp, grid, orders, bounds, md, nd = _lift3(inp, grid, orders,
-                                                   bounds, md)
-    if B * C * math.prod(ishape) == 0:
-        return val, gout
-    # the lifted gradient has 3 components; the kernel writes it whole
-    g3 = gout if nd == 0 or not grad \
-        else inp.new_empty((B, C) + tuple(inp.shape[2:]) + (3,))
-
+                                                   bounds, md, deriv)
+    shape3 = tuple(grid.shape[1:4])
+    if B * C * math.prod(shape3) == 0:
+        return None
     p = _WarpParams()
     p.B, p.C = B, C
-    shape3 = tuple(inp.shape[2:])
     thr = 0.05 if extrapolate == 0 else 0.55
     for d in range(3):
         smin, smax = window_range(orders[d], md[d])
@@ -140,47 +146,137 @@ def warp_cuda(inp: torch.Tensor, grid: torch.Tensor,
                                          dtype=torch.float32))
     p.thr_lo = float(torch.tensor(-thr, dtype=torch.float32))
     p.masked = int(extrapolate != 1)
+    return inp, grid, p, nd
 
-    fn = _entry()
-    with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream(inp.device).cuda_stream
-        err = fn(inp.data_ptr(), grid.data_ptr(),
-                 val.data_ptr() if value else None,
-                 g3.data_ptr() if grad else None,
-                 ctypes.byref(p), int(value), int(grad), stream)
+
+def _call(name, t, *args):
+    """Launch on ``t``'s device and current stream; raise on a refusal."""
+    fn = _entry(name)
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"interpol_warp launch failed: cudaError_t {err}")
-    LAUNCHES += 1
-    mode = "value+grad" if value and grad else ("value" if value else "grad")
-    LAUNCHES_BY_MODE[mode] += 1
+        raise RuntimeError(f"interpol_{name} launch failed: cudaError_t "
+                           f"{err}")
+
+
+def warp_cuda(inp: torch.Tensor, grid: torch.Tensor,
+              orders: Sequence[int], bounds: Sequence[int],
+              extrapolate: int, max_disp, value: bool = True,
+              grad: bool = False
+              ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Dense-warp pull and/or spatial gradient on the card.
+
+    inp (B, C, *ishape) and grid (B, *ishape, D), D in 1..3, both CUDA,
+    float32, contiguous.  Returns ``(val, grad)``: ``val`` (B, C, *ishape)
+    if ``value`` else None, ``grad`` (B, C, *ishape, D) if ``grad`` else
+    None.  Same semantics as ``window._pull_impl_torch`` /
+    ``_grad_impl_torch``.
+    """
+    if not (value or grad):
+        raise ValueError("nothing to compute")
+    setup = _launch_setup("warp_cuda", inp, grid, orders, bounds,
+                          extrapolate, max_disp)
+    B, C = inp.shape[:2]
+    ishape = tuple(inp.shape[2:])
+    D = len(ishape)
+    val = inp.new_empty((B, C) + ishape) if value else None
+    gout = inp.new_empty((B, C) + ishape + (D,)) if grad else None
+    if setup is None:
+        return val, gout
+    inp3, grid3, p, nd = setup
+    # the lifted gradient has 3 components; the kernel writes it whole
+    g3 = gout if nd == 0 or not grad \
+        else inp.new_empty(tuple(inp3.shape) + (3,))
+    _call("warp", inp3, inp3.data_ptr(), grid3.data_ptr(),
+          val.data_ptr() if value else None,
+          g3.data_ptr() if grad else None, None, ctypes.byref(p),
+          int(value), int(grad), 0)
+    _count("value+grad" if value and grad else ("value" if value
+                                                else "grad"))
     if grad and nd:
         gout.copy_(g3[..., nd:].reshape(gout.shape))
     return val, gout
 
 
-def _check_inputs(inp, grid):
-    """Raise on anything the kernel does not take."""
-    for name, t in (("inp", inp), ("grid", grid)):
+def hess_cuda(inp: torch.Tensor, grid: torch.Tensor,
+              orders: Sequence[int], bounds: Sequence[int],
+              extrapolate: int, max_disp) -> torch.Tensor:
+    """Dense-warp spatial Hessian on the card: inp (B, C, *ishape), grid
+    (B, *ishape, D) -> (B, C, *ishape, D, D), symmetric.  Same semantics
+    as ``window._hess_impl_torch``; inputs as :func:`warp_cuda`."""
+    setup = _launch_setup("hess_cuda", inp, grid, orders, bounds,
+                          extrapolate, max_disp)
+    ishape = tuple(inp.shape[2:])
+    D = len(ishape)
+    out = inp.new_empty(tuple(inp.shape) + (D, D))
+    if setup is None:
+        return out
+    inp3, grid3, p, nd = setup
+    h3 = out if nd == 0 else inp.new_empty(tuple(inp3.shape) + (3, 3))
+    _call("warp", inp3, inp3.data_ptr(), grid3.data_ptr(), None, None,
+          h3.data_ptr(), ctypes.byref(p), 0, 0, 1)
+    _count("hess")
+    if nd:
+        # cut the dummy rows and columns
+        out.copy_(h3[..., nd:, nd:].reshape(out.shape))
+    return out
+
+
+def push_cuda(inp: torch.Tensor, grid: torch.Tensor,
+              orders: Sequence[int], bounds: Sequence[int],
+              extrapolate: int, max_disp, deriv: bool = False
+              ) -> torch.Tensor:
+    """Dense-warp splat on the card, the adjoint of :func:`warp_cuda`.
+
+    Plain: values inp (B, C, *ishape) at the sites of grid (B, *ishape,
+    D) -> volume (B, C, *ishape).  ``deriv`` (pushgrad, the adjoint of
+    the gradient): inp (B, C, *ishape, D) -> (B, C, *ishape).  Same
+    semantics as ``window._push_impl_torch`` / ``_pushgrad_impl_torch``,
+    but the float32 sums are atomic adds, so their order (and the last
+    bits of the result) varies from run to run.
+    """
+    name = "push_cuda"
+    setup = _launch_setup(name, inp, grid, orders, bounds, extrapolate,
+                          max_disp, deriv)
+    B, C = inp.shape[:2]
+    ishape = tuple(grid.shape[1:-1])
+    out = torch.zeros((B, C) + ishape, dtype=inp.dtype, device=inp.device)
+    if setup is None:
+        return out
+    inp3, grid3, p, _ = setup
+    _call("push", inp3, inp3.data_ptr(), grid3.data_ptr(), out.data_ptr(),
+          ctypes.byref(p), int(deriv))
+    _count("pushgrad" if deriv else "push")
+    return out
+
+
+def _check_inputs(name, inp, grid, deriv=False):
+    """Raise on anything the kernels do not take."""
+    for arg, t in (("inp", inp), ("grid", grid)):
         if t.device.type != "cuda":
-            raise ValueError(f"warp_cuda: {name} is on {t.device}, not CUDA")
+            raise ValueError(f"{name}: {arg} is on {t.device}, not CUDA")
         if t.dtype != torch.float32:
-            raise TypeError(f"warp_cuda: {name} is {t.dtype}; the kernel "
+            raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel "
                             f"takes float32 only")
         if not t.is_contiguous():
-            raise ValueError(f"warp_cuda: {name} is not contiguous")
-        if t.requires_grad:
-            raise NotImplementedError(
-                f"warp_cuda: {name} requires grad, but the adjoint kernels "
-                f"are not ported yet; run under torch.no_grad()")
+            raise ValueError(f"{name}: {arg} is not contiguous")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(
+                f"{name}: {arg} requires grad, and a direct kernel call "
+                f"would lose that gradient; call the differentiable "
+                f"ops/window.py functions, or run under torch.no_grad()")
     D = grid.shape[-1]
     if not 1 <= D <= 3:
-        raise NotImplementedError(f"warp_cuda: {D}-D warps (1-3 only)")
-    if inp.ndim != D + 2 or grid.ndim != D + 2 \
-            or tuple(inp.shape[2:]) != tuple(grid.shape[1:-1]) \
-            or inp.shape[0] != grid.shape[0]:
+        raise NotImplementedError(f"{name}: {D}-D warps (1-3 only)")
+    ishape = tuple(grid.shape[1:-1])
+    want = (grid.shape[0], inp.shape[1] if inp.ndim > 1 else -1) + ishape \
+        + ((D,) if deriv else ())
+    if grid.ndim != D + 2 or tuple(inp.shape) != want:
+        layout = "(B, C, *ishape, D)" if deriv else "(B, C, *ishape)"
         raise ValueError(
-            f"warp_cuda: need inp (B, C, *ishape) and grid (B, *ishape, "
-            f"D); got {tuple(inp.shape)} and {tuple(grid.shape)}")
+            f"{name}: need inp {layout} and grid (B, *ishape, D); got "
+            f"{tuple(inp.shape)} and {tuple(grid.shape)}")
     if inp.device != grid.device:
-        raise ValueError(f"warp_cuda: inp on {inp.device}, grid on "
+        raise ValueError(f"{name}: inp on {inp.device}, grid on "
                          f"{grid.device}")

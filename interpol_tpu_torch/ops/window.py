@@ -1,31 +1,38 @@
-"""Dense-grid warp sampling for bounded displacements: pull and spatial
-gradient.
+"""Dense-grid warp sampling for bounded displacements: pull, push, their
+spatial derivatives, and the hand-wired adjoints that train through them.
 
-PyTorch port of ``interpol_tpu/ops/window.py:52-204, 405-450``.  Dense
-warps ``grid = identity + displacement`` with ``|disp| <= max_disp`` per
-axis put every tap of every sample inside a fixed window of shifts around
-its own voxel.  Two formulations of the same function live here:
+PyTorch port of ``interpol_tpu/ops/window.py``.  Dense warps ``grid =
+identity + displacement`` with ``|disp| <= max_disp`` per axis put every
+tap of every sample inside a fixed window of shifts around its own voxel.
+Two formulations of each operation live here:
 
-- the **plain** version (``_pull_impl_torch`` / ``_grad_impl_torch``), the
-  shift-FMA form of the JAX package line for line:
+- the **plain** version (``_pull_impl_torch``, ``_grad_impl_torch``,
+  ``_hess_impl_torch``, ``_push_impl_torch``, ``_pushgrad_impl_torch``),
+  the shift-FMA form of the JAX package line for line:
 
       out[p] = sum_{s in window^D} ( prod_d coef_d[s_d](p) ) * Vpad[p + s]
 
-  with ``Vpad`` the boundary-folded padded volume.  It runs for CPU
-  tensors, and the tests and ``chip_smoke.py`` call it by name on the card;
-- the **CUDA kernel** (``ops/cuda_warp.py`` → ``csrc/warp.cu``), a direct
-  gather of the (order+1)^D taps, for CUDA tensors.
+  with ``Vpad`` the boundary-folded padded volume (push and pushgrad are
+  its transpose: splat into the padded volume, then fold the margins
+  back).  It runs for CPU tensors, and the tests and ``chip_smoke.py``
+  call it by name on the card;
+- the **CUDA kernels** (``ops/cuda_warp.py`` -> ``csrc/warp.cu`` for
+  pull / grad / hess, ``csrc/push.cu`` for push / pushgrad), a direct
+  gather or splat of the (order+1)^D taps, for CUDA tensors.
 
-``pull_window`` / ``grad_window`` pick by the tensors' device: a CPU tensor
-runs the plain version, a CUDA tensor the kernel (which raises on what it
-does not take).  A sample whose node origin falls outside the window on
-some axis gets no tap there and reads 0 in both formulations, exactly as
-in the JAX package.  ``spread`` is accepted and ignored (full window), as
-the JAX package's XLA tier ignores it.
+The public ``*_window`` functions are ``torch.autograd.Function``s whose
+backward rules mirror the JAX package's custom VJPs (pull and push are
+mutual adjoints, grad and pushgrad too; the grid cotangents come from the
+next derivative up).  The same Functions run on both devices: the plain
+versions for CPU tensors, the kernels for CUDA tensors.  A sample whose
+node origin falls outside the window on some axis gets no tap there, in
+every formulation, exactly as in the JAX package.  ``spread`` is accepted
+and ignored (full window), as the JAX package's XLA tier ignores it.
 
 Layout (the JAX side's vmap written out as a batch dimension):
     inp (B, C, *ishape), grid (B, *ishape, D)
-    pull -> (B, C, *ishape); grad -> (B, C, *ishape, D)
+    pull, push, pushgrad -> (B, C, *ishape); grad -> (B, C, *ishape, D);
+    hess -> (B, C, *ishape, D, D); pushgrad takes (B, C, *ishape, D)
 """
 from __future__ import annotations
 
@@ -35,12 +42,14 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from .bounds import fold_index, fold_sign
 from .ndkernels import inbounds_mask
 from .splines import bspline_taps, node_origin
 
-__all__ = ["window_range", "pull_window", "grad_window"]
+__all__ = ["window_range", "pull_window", "push_window", "grad_window",
+           "pushgrad_window", "hess_window"]
 
 
 def window_range(order: int, max_disp: float) -> Tuple[int, int]:
@@ -105,14 +114,17 @@ def _pad_folded(inp: torch.Tensor, ishape, bounds, lo: Sequence[int],
     return out
 
 
-def _coef_fields(grid, orders, max_disp, wdtype, deriv_axis=None):
+def _coef_fields(grid, orders, max_disp, wdtype, deriv_axes=(),
+                 deriv2_axis=None):
     """Per-axis coefficient fields.
 
     ``grid``: (B, *ishape, D).  Returns (ranges, coefs): ranges[d] =
     (smin, smax); coefs[d] is a list of (smax-smin+1) tensors shaped
     (B, *ishape), where coefs[d][k] is the weight this sample contributes
-    at relative shift smin+k along axis d.  ``deriv_axis`` selects the
-    first-derivative factors on that axis.
+    at relative shift smin+k along axis d.  ``deriv_axes`` selects the
+    first-derivative factors on those axes (a mixed second derivative is
+    the product of two first derivatives), ``deriv2_axis`` the
+    second-derivative factors on that axis.
     """
     D = grid.shape[-1]
     md = _md_tuple(max_disp, D)
@@ -122,8 +134,9 @@ def _coef_fields(grid, orders, max_disp, wdtype, deriv_axis=None):
         order = orders[d]
         smin, smax = window_range(order, md[d])
         n0, t = node_origin(g, order)
-        w, gr, _ = bspline_taps(t, order, grad=(d == deriv_axis))
-        taps = gr if d == deriv_axis else w
+        need_grad, need_hess = d in deriv_axes, deriv2_axis == d
+        w, gr, he = bspline_taps(t, order, grad=need_grad, hess=need_hess)
+        taps = he if need_hess else (gr if need_grad else w)
         # delta0 = n0 - p  (p = own voxel index along axis d)
         shape = [1] * g.ndim
         shape[1 + d] = g.shape[1 + d]
@@ -195,7 +208,7 @@ def _grad_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
     outs = []
     for da in range(D):
         ranges, coefs = _coef_fields(grid, orders, max_disp, wdtype,
-                                     deriv_axis=da)
+                                     deriv_axes=(da,))
         outs.append(_accumulate(vpad, ranges, coefs, lo, ishape))
     out = torch.stack(outs, dim=-1)
     mask = inbounds_mask(grid, ishape, extrapolate, wdtype)
@@ -204,31 +217,363 @@ def _grad_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
     return out
 
 
+def _fold_pad_margins(acc, ishape, bounds, lo, hi, wdtype):
+    """Adjoint of :func:`_pad_folded`: fold the pad margins back into the
+    volume through the boundary (signs, then an index add per axis).
+    ``acc``: (..., *padded_shape) -> (..., *ishape)."""
+    D = len(ishape)
+    out = acc
+    for d in range(D):
+        n = ishape[d]
+        axis = out.ndim - D + d
+        idx = np.arange(-lo[d], n + hi[d])
+        folded = torch.as_tensor(fold_index(idx, n, bounds[d]),
+                                 device=out.device)
+        sign = fold_sign(idx, n, bounds[d], np.float64)
+        if sign is not None:
+            shape = [1] * out.ndim
+            shape[axis] = idx.size
+            out = out * torch.as_tensor(sign, dtype=wdtype,
+                                        device=out.device).reshape(shape)
+        seg = out.new_zeros(out.shape[:axis] + (n,) + out.shape[axis + 1:])
+        out = seg.index_add_(axis, folded, out)
+    return out
+
+
+def _splat(acc, vals, ranges, coefs, lo, ishape):
+    """Adjoint of :func:`_accumulate`, in place: for every shift s of the
+    window, ``acc[p + s] += vals[p] * prod_d coef_d[s_d](p)``.
+    ``acc``: (B, C, *padded_shape); ``vals``: (B, C, *ishape)."""
+    D = len(ishape)
+    spans = [range(r[1] - r[0] + 1) for r in ranges]
+    for ks in itertools.product(*spans):
+        w = None
+        for d, k in enumerate(ks):
+            cd = coefs[d][k]
+            w = cd if w is None else w * cd
+        idx = [slice(None)] * (acc.ndim - D)
+        for d in range(D):
+            start = lo[d] + ranges[d][0] + ks[d]
+            idx.append(slice(start, start + ishape[d]))
+        acc[tuple(idx)] += vals * w[:, None]
+
+
+def _push_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
+    """Plain splat, the exact adjoint of :func:`_pull_impl_torch`:
+    (B, C, *ishape) values at the grid sites -> (B, C, *ishape) volume.
+    Masked values are zeroed before the splat; a site whose node origin
+    leaves the window on some axis has a zero coefficient there and adds
+    nothing."""
+    D = grid.shape[-1]
+    ishape = tuple(grid.shape[1:-1])
+    wdtype = torch.promote_types(inp.dtype, grid.dtype)
+    lo, hi = _window_geom(orders, max_disp, D)
+    ranges, coefs = _coef_fields(grid, orders, max_disp, wdtype)
+    vals = inp.to(wdtype)
+    mask = inbounds_mask(grid, ishape, extrapolate, wdtype)
+    if mask is not None:
+        vals = vals * mask[:, None]
+    pshape = tuple(n + l + h for n, l, h in zip(ishape, lo, hi))
+    acc = vals.new_zeros(tuple(vals.shape[:2]) + pshape)
+    _splat(acc, vals, ranges, coefs, lo, ishape)
+    return _fold_pad_margins(acc, ishape, bounds, lo, hi, wdtype)
+
+
+# --------------------------------------- second-order windowed primitives
+# The backward of grad_window.  At large volumes the plain versions stream
+# x-slabs, as the JAX package's XLA tier does, so that the coefficient
+# fields (~3 axes x S shifts x slab voxels) stay bounded.
+
+_SLAB_VOX = 1 << 21
+
+
+def _x_slabs(ishape):
+    """Leading-axis slab spans [(x0, x1), ...] of the streamed plain
+    versions (one span when the volume is small enough for one shot)."""
+    numel = math.prod(ishape)
+    one = [(0, ishape[0])]
+    if len(ishape) < 2 or numel <= 2 * _SLAB_VOX:
+        return one
+    rest = numel // ishape[0]
+    bx = max(1, _SLAB_VOX // max(1, rest))
+    if bx >= ishape[0]:
+        return one
+    return [(x, min(x + bx, ishape[0])) for x in range(0, ishape[0], bx)]
+
+
+def _shift_grid_x(grid_b, x0):
+    """Move the leading-axis coordinate into the slab's frame (an integer
+    shift: the taps are translation-invariant, and the voxel index of
+    :func:`_coef_fields` is slab-local)."""
+    if x0 == 0:
+        return grid_b
+    return torch.cat([grid_b[..., :1] - x0, grid_b[..., 1:]], -1)
+
+
+def _pushgrad_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
+    """Plain pushgrad, the exact adjoint of :func:`_grad_impl_torch`:
+    (B, C, *ishape, D) cotangents of the spatial gradient -> (B, C,
+    *ishape), each component splatted through the derivative coefficient
+    fields of its axis."""
+    D = grid.shape[-1]
+    ishape = tuple(grid.shape[1:-1])
+    wdtype = torch.promote_types(inp.dtype, grid.dtype)
+    lo, hi = _window_geom(orders, max_disp, D)
+    vals = inp.to(wdtype)
+    mask = inbounds_mask(grid, ishape, extrapolate, wdtype)
+    if mask is not None:
+        vals = vals * mask[:, None, ..., None]
+    pshape = tuple(n + l + h for n, l, h in zip(ishape, lo, hi))
+    acc = vals.new_zeros(tuple(vals.shape[:2]) + pshape)
+    for x0, x1 in _x_slabs(ishape):
+        grid_b = _shift_grid_x(grid[:, x0:x1], x0)
+        bshape = (x1 - x0,) + ishape[1:]
+        # the slab's padded box starts at x0 of the whole padded volume
+        acc_b = acc[:, :, x0:x1 + lo[0] + hi[0]]
+        for da in range(D):
+            ranges, coefs = _coef_fields(grid_b, orders, max_disp, wdtype,
+                                         deriv_axes=(da,))
+            _splat(acc_b, vals[:, :, x0:x1, ..., da], ranges, coefs, lo,
+                   bshape)
+    return _fold_pad_margins(acc, ishape, bounds, lo, hi, wdtype)
+
+
+def _hess_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
+    """Plain spatial Hessian of the spline surface: (B, C, *ishape) ->
+    (B, C, *ishape, D, D), symmetric in the last two axes."""
+    D = grid.shape[-1]
+    ishape = tuple(inp.shape[-D:])
+    wdtype = torch.promote_types(inp.dtype, grid.dtype)
+    lo, hi = _window_geom(orders, max_disp, D)
+    vpad = _pad_folded(inp.to(wdtype), ishape, bounds, lo, hi, wdtype)
+    ax = vpad.ndim - D
+    parts = []
+    for x0, x1 in _x_slabs(ishape):
+        grid_b = _shift_grid_x(grid[:, x0:x1], x0)
+        bshape = (x1 - x0,) + ishape[1:]
+        vpad_b = vpad.narrow(ax, x0, x1 - x0 + lo[0] + hi[0])
+        uniq = {}
+        for d in range(D):
+            for d2 in range(d, D):
+                kw = dict(deriv2_axis=d) if d == d2 \
+                    else dict(deriv_axes=(d, d2))
+                ranges, coefs = _coef_fields(grid_b, orders, max_disp,
+                                             wdtype, **kw)
+                uniq[(d, d2)] = _accumulate(vpad_b, ranges, coefs, lo,
+                                            bshape)
+        rows = [torch.stack([uniq[(min(d, d2), max(d, d2))]
+                             for d2 in range(D)], dim=-1)
+                for d in range(D)]
+        parts.append(torch.stack(rows, dim=-2))
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=ax)
+    mask = inbounds_mask(grid, ishape, extrapolate, wdtype)
+    if mask is not None:
+        out = out * mask[:, None, ..., None, None]
+    return out
+
+
+# ------------------------------------------------------------ dispatch
+# A CPU tensor runs the plain version, a CUDA tensor the kernel (which
+# raises on what it does not take).  ``opts`` = (orders, bounds,
+# extrapolate, max_disp); ``grid`` is contiguous.
+
+def _pull(inp, grid, opts):
+    if inp.device.type == "cpu":
+        return _pull_impl_torch(inp, grid, *opts)
+    from .cuda_warp import warp_cuda
+    return warp_cuda(inp.contiguous(), grid, *opts, value=True,
+                     grad=False)[0]
+
+
+def _grad(inp, grid, opts):
+    if inp.device.type == "cpu":
+        return _grad_impl_torch(inp, grid, *opts)
+    from .cuda_warp import warp_cuda
+    return warp_cuda(inp.contiguous(), grid, *opts, value=False,
+                     grad=True)[1]
+
+
+def _hess(inp, grid, opts):
+    if inp.device.type == "cpu":
+        return _hess_impl_torch(inp, grid, *opts)
+    from .cuda_warp import hess_cuda
+    return hess_cuda(inp.contiguous(), grid, *opts)
+
+
+def _push(inp, grid, opts):
+    if inp.device.type == "cpu":
+        return _push_impl_torch(inp, grid, *opts)
+    from .cuda_warp import push_cuda
+    return push_cuda(inp.contiguous(), grid, *opts)
+
+
+def _pushgrad(inp, grid, opts):
+    if inp.device.type == "cpu":
+        return _pushgrad_impl_torch(inp, grid, *opts)
+    from .cuda_warp import push_cuda
+    return push_cuda(inp.contiguous(), grid, *opts, deriv=True)
+
+
+# ------------------------------------------------------------ adjoints
+# Hand-wired backward rules, mirroring the JAX package's custom VJPs
+# (interpol_tpu/ops/window.py:674-846).  The JAX rules sum over axis 0,
+# the channel axis under vmap; in this batch-first layout that is dim 1.
+# Each Function saves the contiguous grid once (``dense_flow`` returns a
+# non-contiguous one) and computes only the cotangents asked for.  The
+# backward rules run the raw operations: differentiating them a second
+# time raises (``once_differentiable``).
+
+def _prepare(ctx, inp, grid, opts):
+    inp, grid = inp.detach(), grid.detach().contiguous()
+    ctx.opts = opts
+    ctx.save_for_backward(inp, grid)
+    return inp, grid
+
+
+class PullWindow(torch.autograd.Function):
+    """pull; backward: d_inp = push(ct), d_grid = sum_c grad(inp) ct."""
+
+    @staticmethod
+    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp):
+        opts = (orders, bounds, extrapolate, max_disp)
+        return _pull(*_prepare(ctx, inp, grid, opts), opts)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        inp, grid = ctx.saved_tensors
+        ct = ct.contiguous()
+        d_inp = d_grid = None
+        if ctx.needs_input_grad[0]:
+            d_inp = _push(ct, grid, ctx.opts).to(inp.dtype)
+        if ctx.needs_input_grad[1]:
+            g = _grad(inp, grid, ctx.opts)
+            d_grid = (g * ct[..., None]).sum(1).to(grid.dtype)
+        return d_inp, d_grid, None, None, None, None
+
+
+class PushWindow(torch.autograd.Function):
+    """push; backward: d_inp = pull(ct), d_grid = sum_c grad(ct) inp."""
+
+    @staticmethod
+    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp):
+        opts = (orders, bounds, extrapolate, max_disp)
+        return _push(*_prepare(ctx, inp, grid, opts), opts)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        inp, grid = ctx.saved_tensors
+        ct = ct.contiguous()
+        d_inp = d_grid = None
+        if ctx.needs_input_grad[0]:
+            d_inp = _pull(ct, grid, ctx.opts).to(inp.dtype)
+        if ctx.needs_input_grad[1]:
+            g = _grad(ct, grid, ctx.opts)
+            d_grid = (g * inp[..., None]).sum(1).to(grid.dtype)
+        return d_inp, d_grid, None, None, None, None
+
+
+class GradWindow(torch.autograd.Function):
+    """grad; backward: d_inp = pushgrad(ct), d_grid = sum_{c,i}
+    hess(inp)_ij ct_i."""
+
+    @staticmethod
+    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp):
+        opts = (orders, bounds, extrapolate, max_disp)
+        return _grad(*_prepare(ctx, inp, grid, opts), opts)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        inp, grid = ctx.saved_tensors
+        ct = ct.contiguous()
+        d_inp = d_grid = None
+        if ctx.needs_input_grad[0]:
+            d_inp = _pushgrad(ct, grid, ctx.opts).to(inp.dtype)
+        if ctx.needs_input_grad[1]:
+            h = _hess(inp, grid, ctx.opts)
+            d_grid = (h * ct[..., None]).sum((1, -2)).to(grid.dtype)
+        return d_inp, d_grid, None, None, None, None
+
+
+class PushgradWindow(torch.autograd.Function):
+    """pushgrad; backward: d_inp = grad(ct), d_grid = sum_{c,i}
+    hess(ct)_ij inp_i."""
+
+    @staticmethod
+    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp):
+        opts = (orders, bounds, extrapolate, max_disp)
+        return _pushgrad(*_prepare(ctx, inp, grid, opts), opts)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        inp, grid = ctx.saved_tensors
+        ct = ct.contiguous()
+        d_inp = d_grid = None
+        if ctx.needs_input_grad[0]:
+            d_inp = _grad(ct, grid, ctx.opts).to(inp.dtype)
+        if ctx.needs_input_grad[1]:
+            h = _hess(ct, grid, ctx.opts)
+            d_grid = (h * inp[..., None]).sum((1, -2)).to(grid.dtype)
+        return d_inp, d_grid, None, None, None, None
+
+
+class HessWindow(torch.autograd.Function):
+    """hess; no backward yet (the JAX package's third-order rule,
+    window.py:734-744, is not ported)."""
+
+    @staticmethod
+    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp):
+        opts = (orders, bounds, extrapolate, max_disp)
+        return _hess(inp.detach(), grid.detach().contiguous(), opts)
+
+    @staticmethod
+    def backward(ctx, ct):
+        raise NotImplementedError(
+            "the backward of hess_window (third order) is not ported yet "
+            "(ROADMAP queue 1, HessWindow backward)")
+
+
 def pull_window(inp, grid, orders, bounds, extrapolate, max_disp,
                 spread=None):
     """Dense-grid pull: (B, C, *ishape), (B, *ishape, D) -> (B, C, *ishape).
 
     CPU tensors run the plain shift-FMA version; CUDA tensors the CUDA
-    kernel (float32 only).  ``spread`` is ignored (full window)."""
-    if inp.device.type == "cpu":
-        return _pull_impl_torch(inp, grid, orders, bounds, extrapolate,
-                                max_disp)
-    from .cuda_warp import warp_cuda
-    val, _ = warp_cuda(inp.contiguous(), grid.contiguous(), orders, bounds,
-                       extrapolate, max_disp, value=True, grad=False)
-    return val
+    kernel (float32 only).  Differentiable in ``inp`` and ``grid``.
+    ``spread`` is ignored (full window)."""
+    return PullWindow.apply(inp, grid, tuple(orders), tuple(bounds),
+                            extrapolate, max_disp)
+
+
+def push_window(inp, grid, orders, bounds, extrapolate, max_disp,
+                spread=None):
+    """Dense-grid splat, the exact adjoint of :func:`pull_window`:
+    (B, C, *ishape), (B, *ishape, D) -> (B, C, *ishape)."""
+    return PushWindow.apply(inp, grid, tuple(orders), tuple(bounds),
+                            extrapolate, max_disp)
 
 
 def grad_window(inp, grid, orders, bounds, extrapolate, max_disp,
                 spread=None):
     """Dense-grid spatial gradients of the spline surface:
-    (B, C, *ishape), (B, *ishape, D) -> (B, C, *ishape, D).
+    (B, C, *ishape), (B, *ishape, D) -> (B, C, *ishape, D)."""
+    return GradWindow.apply(inp, grid, tuple(orders), tuple(bounds),
+                            extrapolate, max_disp)
 
-    Dispatch as :func:`pull_window`."""
-    if inp.device.type == "cpu":
-        return _grad_impl_torch(inp, grid, orders, bounds, extrapolate,
-                                max_disp)
-    from .cuda_warp import warp_cuda
-    _, g = warp_cuda(inp.contiguous(), grid.contiguous(), orders, bounds,
-                     extrapolate, max_disp, value=False, grad=True)
-    return g
+
+def pushgrad_window(inp, grid, orders, bounds, extrapolate, max_disp,
+                    spread=None):
+    """Adjoint of :func:`grad_window`: (B, C, *ishape, D) cotangents ->
+    (B, C, *ishape)."""
+    return PushgradWindow.apply(inp, grid, tuple(orders), tuple(bounds),
+                                extrapolate, max_disp)
+
+
+def hess_window(inp, grid, orders, bounds, extrapolate, max_disp,
+                spread=None):
+    """Spatial Hessian of the spline surface: (B, C, *ishape) ->
+    (B, C, *ishape, D, D), symmetric.  Not differentiable yet."""
+    return HessWindow.apply(inp, grid, tuple(orders), tuple(bounds),
+                            extrapolate, max_disp)

@@ -1,7 +1,9 @@
-"""The dense-warp CUDA kernel against its plain PyTorch version, on the card.
+"""The dense-warp CUDA kernels against their plain PyTorch versions, on the
+card: pull value / grad / hess (``csrc/warp.cu``), push and pushgrad
+(``csrc/push.cu``), the autograd Functions and the train steps on them.
 
 Every test here is marked ``cuda`` and skips where there is no NVIDIA GPU
-(the kernel has no CPU mode).  The file imports no JAX, so it also runs on
+(the kernels have no CPU mode).  The file imports no JAX, so it also runs on
 a GPU machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -10,14 +12,18 @@ import numpy as np
 import pytest
 import torch
 
-from interpol_tpu_torch import WarpModel, grid_grad, grid_pull
+from interpol_tpu_torch import (SVFModel, WarpModel, grid_grad, grid_pull,
+                                svf_mse_loss)
 from interpol_tpu_torch.ops import cuda_warp
 from interpol_tpu_torch.ops import window as tw
 
 pytestmark = pytest.mark.cuda
 
-# float32 sums of at most 512 non-zero taps taken in another order
+# float32 sums of at most 512 non-zero taps taken in another order (for
+# push, in an order that varies from run to run: compare with a tolerance)
 REL_TOL = 1e-5
+# a whole train step, card vs CPU: sums of many such terms
+STEP_TOL = 1e-4
 
 
 @pytest.fixture
@@ -41,12 +47,12 @@ def warp_case(device, ish, C=2, disp=1.5, seed=0, break_contract=0.0, B=1):
     return torch.as_tensor(inp, **kw), torch.as_tensor(ident + d, **kw)
 
 
-def assert_close(out, ref):
-    tol = REL_TOL * max(1.0, ref.abs().max().item())
+def assert_close(out, ref, rel=REL_TOL):
+    tol = rel * max(1.0, ref.abs().max().item())
     torch.testing.assert_close(out, ref, rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("orders,bounds,ex,ish,md,brk", [
+CASES = [
     ((3, 3, 3), (3, 3, 3), 1, (11, 12, 13), 1.5, 0.0),
     ((1, 1, 1), (6, 6, 6), 0, (11, 12, 13), 1.5, 0.0),
     ((3, 2, 1), (0, 4, 5), 2, (19, 24, 37), 1.5, 0.0),
@@ -56,7 +62,10 @@ def assert_close(out, ref):
     ((2, 2, 2), (3, 2, 0), 1, (11, 12, 13), (0.5, 1.5, 1.0), 0.0),
     ((3, 1), (3, 0), 2, (30, 17), 1.5, 0.0),                # 2-D
     ((5,), (6,), 1, (40,), 1.5, 0.0),                       # 1-D
-])
+]
+
+
+@pytest.mark.parametrize("orders,bounds,ex,ish,md,brk", CASES)
 def test_kernel_matches_plain(cuda_device, orders, bounds, ex, ish, md,
                               brk):
     inp, grid = warp_case(cuda_device, ish, disp=md, break_contract=brk,
@@ -67,6 +76,68 @@ def test_kernel_matches_plain(cuda_device, orders, bounds, ex, ish, md,
     assert cuda_warp.LAUNCHES == before + 1
     assert_close(val, tw._pull_impl_torch(inp, grid, orders, bounds, ex, md))
     assert_close(g, tw._grad_impl_torch(inp, grid, orders, bounds, ex, md))
+
+
+@pytest.mark.parametrize("orders,bounds,ex,ish,md,brk", CASES)
+def test_second_order_and_push_kernels_match_plain(cuda_device, orders,
+                                                   bounds, ex, ish, md,
+                                                   brk):
+    inp, grid = warp_case(cuda_device, ish, disp=md, break_contract=brk,
+                          B=2)
+    ct = torch.randn(inp.shape + (len(ish),), device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(0))
+    opts = (orders, bounds, ex, md)
+    before = dict(cuda_warp.LAUNCHES_BY_MODE)
+    h = cuda_warp.hess_cuda(inp, grid, *opts)
+    p = cuda_warp.push_cuda(inp, grid, *opts)
+    pg = cuda_warp.push_cuda(ct, grid, *opts, deriv=True)
+    for mode in ("hess", "push", "pushgrad"):
+        assert cuda_warp.LAUNCHES_BY_MODE[mode] == before[mode] + 1
+    assert torch.equal(h, h.transpose(-1, -2))
+    assert_close(h, tw._hess_impl_torch(inp, grid, *opts))
+    assert_close(p, tw._push_impl_torch(inp, grid, *opts))
+    assert_close(pg, tw._pushgrad_impl_torch(ct, grid, *opts))
+
+
+def test_adjoint_identities(cuda_device):
+    inp, grid = warp_case(cuda_device, (19, 24, 37), C=3, B=2)
+    opts = ((3, 2, 1), (0, 4, 5), 2, 1.5)
+    v = torch.randn_like(inp)
+    U = torch.randn(inp.shape + (3,), device=cuda_device)
+    pv, gv = cuda_warp.warp_cuda(v, grid, *opts, value=True, grad=True)
+    for a, b in [(cuda_warp.push_cuda(inp, grid, *opts) * v, inp * pv),
+                 (cuda_warp.push_cuda(U, grid, *opts, deriv=True) * v,
+                  U * gv)]:
+        a, b = a.double(), b.double()
+        assert abs(a.sum() - b.sum()).item() \
+            <= REL_TOL * b.abs().sum().item()
+
+
+def test_train_steps_card_match_cpu(cuda_device):
+    rng = np.random.default_rng(2)
+    params = 0.5 * rng.standard_normal((2, 4, 4, 4, 3))
+    moving = rng.standard_normal((2, 3, 12, 10, 16))
+    out = []
+    for device in (cuda_device, "cpu"):
+        mv = torch.as_tensor(moving, dtype=torch.float32, device=device)
+        warp = WarpModel((12, 10, 16), (4, 4, 4), max_disp=1.0, batch=2,
+                         device=device)
+        svf = SVFModel((12, 10, 16), (4, 4, 4), max_disp=1.0, steps=3,
+                       batch=2, device=device)
+        warp.load_jax_params(params)
+        svf.load_jax_params(params)
+        loss_w = torch.mean((warp(mv) - 0.9 * mv) ** 2)
+        loss_s = svf_mse_loss(svf, mv, 0.9 * mv, jac_weight=0.1)
+        out.append([t.detach().cpu() for t in (
+            loss_w, *torch.autograd.grad(loss_w, [warp.params]),
+            loss_s, *torch.autograd.grad(loss_s, [svf.params]))])
+    for a, b in zip(*out):
+        assert_close(a, b, STEP_TOL)
+
+
+def test_models_live_on_the_card(cuda_device):
+    assert WarpModel((8, 8, 8), (2, 2, 2)).params.is_cuda
+    assert SVFModel((8, 8, 8), (2, 2, 2)).params.is_cuda
 
 
 def test_api_runs_the_kernel(cuda_device):
@@ -100,7 +171,15 @@ def test_wrapper_refuses(cuda_device):
     opts = ((3, 3, 3), (3, 3, 3), 1, 1.5)
     with pytest.raises(TypeError, match="float32"):
         tw.pull_window(inp.double(), grid.double(), *opts)
+    for call in (cuda_warp.hess_cuda, cuda_warp.push_cuda):
+        with pytest.raises(TypeError, match="float32"):
+            call(inp.double(), grid.double(), *opts)
+        with pytest.raises(ValueError, match="contiguous"):
+            call(inp.transpose(2, 3), grid, *opts)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_warp.warp_cuda(inp.transpose(2, 3), grid, *opts)
-    with pytest.raises(NotImplementedError, match="requires grad"):
-        tw.pull_window(inp.requires_grad_(), grid, *opts)
+    # a direct kernel call would lose the gradient; the Functions do not
+    with pytest.raises(RuntimeError, match="requires grad"):
+        cuda_warp.warp_cuda(inp.clone().requires_grad_(), grid, *opts)
+    out = tw.pull_window(inp.clone().requires_grad_(), grid, *opts)
+    assert out.requires_grad

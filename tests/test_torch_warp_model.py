@@ -52,7 +52,7 @@ def test_params_and_config_carry_over():
     jmodel, params, _, _ = jax_model_and_data()
     t = twarp.params_from_jax(params, device="cpu", dtype=torch.float64)
     np.testing.assert_array_equal(t.numpy(), params)
-    tmodel = twarp.WarpModel(**jmodel._asdict())
+    tmodel = twarp.WarpModel(**jmodel._asdict(), device="cpu")
     assert tuple(tmodel.params.shape) == (1, 4, 4, 4, 3)
     assert not tmodel.params.any()
     assert tmodel.auto_tile_spread() == jmodel.auto_tile_spread()

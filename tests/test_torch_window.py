@@ -88,7 +88,8 @@ def test_window_matches_pallas_interpret():
 
 @pytest.mark.parametrize("order,max_disp,expect", [
     (0, 0.5, (-1, 1)), (0, 1.5, (-2, 2)), (1, 1.0, (-1, 2)),
-    (3, 1.0, (-2, 3)), (3, 4.0, (-5, 6)), (7, 1.5, (-5, 5))])
+    (3, 1.0, (-2, 3)), (3, 4.0, (-5, 6)), (7, 1.5, (-5, 5)),
+    (3, 0.0, (-1, 2))])     # disp_jacobian: grid_grad at the identity
 def test_window_range(order, max_disp, expect):
     assert tw.window_range(order, max_disp) == expect \
         == jw.window_range(order, max_disp)
