@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's forward and training paths on one NVIDIA
-GPU.
+"""Drive the PyTorch/CUDA port's dense-warp and scattered paths, forward
+and training, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,23 +10,32 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    with no CUDA device the script stops here (there is no CPU run);
 2. build the kernels from ``interpol_tpu_torch/csrc``, one nvcc per
    source, all at once;
-3. each kernel mode (pull value / grad / hess, push, pushgrad) against its
-   plain PyTorch version on the card, float32, over orders, bounds,
-   extrapolation modes, odd shapes, a per-axis ``max_disp``, 1-D / 2-D
-   warps and a grid that breaks the ``max_disp`` contract; the adjoint
-   identities; the run-to-run spread of the atomic splat;
+3. each dense-warp kernel mode (pull value / grad / hess, push, pushgrad)
+   against its plain PyTorch version on the card, float32, over orders,
+   bounds, extrapolation modes, odd shapes, a per-axis ``max_disp``, 1-D /
+   2-D warps and a grid that breaks the ``max_disp`` contract; the adjoint
+   identities; then each scattered mode (gather value / grad / hess /
+   value+grad / grad+hess, splat push / pushgrad / pushhess) against the
+   plain cores over orders 0-7, the seven bounds, extrapolate 0/1/2,
+   D = 1/2/3, points outside the volume, another output shape and a
+   dense cloud; fused modes equal to single ones, every splat equal
+   across two runs;
 4. the training steps at a small size on the card (kernels) against the
    same steps on the CPU (plain versions);
 5. the main paths at full width, each with the launch counts set to 0
    just before it and read just after: the ``WarpModel`` forward and
-   ``grid_grad`` (256^3, coarse 8^3, cubic, dct2, ``max_disp=4``), then
-   P2 ``train_step`` x3, P3 ``svf_train_step`` x3 (``jac_weight=0.1``)
-   and P4 the gradient of ``sum(grid_grad(v, g, max_disp=2)**2)``; the
-   kernels' outputs in each backward against the plain versions on the
-   same inputs;
-6. times and peak memory at 256^3 beside the card's name and power limit;
-   the device busy time, idle share and heaviest kernels of the two train
-   steps (torch.profiler).
+   ``grid_grad`` (256^3, coarse 8^3, cubic, dct2, ``max_disp=4``), P2
+   ``train_step`` x3, P3 ``svf_train_step`` x3 (``jac_weight=0.1``), P4
+   the gradient of ``sum(grid_grad(v, g, max_disp=2)**2)``; P5 the
+   scattered forward (``grid_pull``, ``grid_grad``, ``grid_push``,
+   ``grid_count`` of 1M points in 256^3, cubic dct2), P6 its gradients
+   (and P6b a second order), P7 an affine reslice of 256^3 and the
+   gradient of its MSE in volume and matrix; the kernels' outputs in each
+   path held to the plain versions on the same inputs;
+6. times and peak memory beside the card's name and power limit, push and
+   every splat equal across runs, ``grid_sample`` as the library yardstick
+   at order 1; the device busy time, idle share and heaviest kernels of
+   the two train steps (torch.profiler).
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -34,6 +43,7 @@ The last two lines are a JSON object of per-kernel results and
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -41,17 +51,18 @@ import time
 import numpy as np
 import torch
 
-from interpol_tpu_torch import (SVFModel, WarpModel, grid_grad,
+from interpol_tpu_torch import (SVFModel, WarpModel, affine_grid, grid_count,
+                                grid_grad, grid_pull, grid_push,
                                 jacobian_det, svf_mse_loss, svf_train_step,
                                 train_step)
-from interpol_tpu_torch.ops import _build, cuda_warp, ndkernels, window
+from interpol_tpu_torch.ops import (_build, cuda_scattered, cuda_warp,
+                                    ndkernels, pushpull, window)
 from interpol_tpu_torch.ops.window import (
     _grad_impl_torch, _hess_impl_torch, _pull_impl_torch, _push_impl_torch,
     _pushgrad_impl_torch)
 
 # kernel vs plain: float32 sums of at most 512 non-zero taps taken in
-# another order (for push, an order that varies from run to run); the JAX
-# package's float32 parity gate is 1e-5 too
+# another order; the JAX package's float32 parity gate is 1e-5 too
 TOL = 1e-5
 # a whole train step, card vs CPU: the float32 losses and gradients sum
 # millions of such terms through several kernels (and resize matmuls)
@@ -60,6 +71,11 @@ MAIN_VOL, MAIN_COARSE = (256, 256, 256), (8, 8, 8)
 # one H100 SXM at its 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 MODES = ("value", "grad", "hess", "push", "pushgrad")
+SC_MODES = tuple(cuda_scattered.LAUNCHES_BY_MODE)
+ALL_MODES = MODES + SC_MODES
+# the scattered paths: 1M points into 256^3 (scripts/bench_suite.py:183)
+SC_N, SC_P = 256, 1_000_000
+SC_OPTS = ((3, 3, 3), (3, 3, 3), 1)
 DEV = "cuda"
 PLAIN = {"_pull": _pull_impl_torch, "_grad": _grad_impl_torch,
          "_hess": _hess_impl_torch, "_push": _push_impl_torch,
@@ -148,22 +164,25 @@ class Drive:
     and read just after; keep the counts summed over the main paths."""
 
     def __init__(self):
-        self.total = {m: 0 for m in MODES}
+        self.total = {m: 0 for m in ALL_MODES}
 
     def __call__(self, name, fn, expect):
         cuda_warp.reset_launches()
+        cuda_scattered.reset_launches()
         out = fn()
         torch.cuda.synchronize()
         by_mode = cuda_warp.LAUNCHES_BY_MODE
         both = by_mode["value+grad"]
         counts = {m: by_mode[m] + (both if m in ("value", "grad") else 0)
                   for m in MODES}
-        log(f"{name}: launches {counts}")
+        counts.update(cuda_scattered.LAUNCHES_BY_MODE)
+        log(f"{name}: launches " + str({m: c for m, c in counts.items()
+                                        if c}))
         for mode, (lo, hi) in expect.items():
             if not lo <= counts[mode] <= hi:
                 raise AssertionError(f"{name}: {counts[mode]} {mode} "
                                      f"launches, expected {lo}..{hi}")
-        for m in MODES:
+        for m in ALL_MODES:
             self.total[m] += counts[m]
         return out
 
@@ -570,13 +589,16 @@ def phase_times(card, errs, main, train) -> dict:
                 f"MiB), bound {b_ms:.3f} ms ({b_by}: "
                 f"{work[mode][0] / 1e6:.1f} MB, "
                 f"{work[mode][1] / 1e9:.2f} GFLOP) [{card}]")
-        p1 = cuda_warp.push_cuda(moving, flow, *opts)
-        spread = max((cuda_warp.push_cuda(moving, flow, *opts) - p1)
-                     .abs().max().item() for _ in range(3))
-        log(f"push run-to-run: largest difference over 3 reruns at "
-            f"{MAIN_VOL} {spread:.3g} (max |push| "
-            f"{p1.abs().max().item():.4g}; atomics sum in a varying order)")
-        del p1
+        for mode, args, kw in [("push", (moving,), {}),
+                               ("pushgrad", (ct,), dict(deriv=True))]:
+            first = cuda_warp.push_cuda(*args, flow, *opts, **kw)
+            if not all(torch.equal(cuda_warp.push_cuda(*args, flow, *opts,
+                                                       **kw), first)
+                       for _ in range(2)):
+                raise AssertionError(f"{mode} differs between runs")
+            log(f"{mode} run-to-run at {MAIN_VOL}: three runs torch.equal "
+                f"(race-free patch splat)")
+            del first
 
     model = main["model"]
     for name, fn, reps in [
@@ -602,6 +624,452 @@ def phase_times(card, errs, main, train) -> dict:
         log(f"time {name} {MAIN_VOL}: {ms:.3f} ms (median of {reps}), "
             f"peak +{mib:.0f} MiB over live tensors [{card}]")
     return times
+
+
+# ------------------------------------------------------------ scattered
+# kernel 3 (csrc/gather.cu) modes: (value, grad, hess) flags
+GATHER = {"sc_value": (True, False, False), "sc_grad": (False, True, False),
+          "sc_hess": (False, False, True),
+          "sc_value+grad": (True, True, False),
+          "sc_grad+hess": (False, True, True)}
+# kernel 4 (csrc/splat.cu) specs: plain core, trailing D axes of the values
+SPLAT = {"sc_push": (ndkernels.push_core, 0),
+         "sc_pushgrad": (ndkernels.pushgrad_core, 1),
+         "sc_pushhess": (ndkernels.pushhess_core, 2)}
+
+
+def gather_mode(value, grad, hess):
+    return next(m for m, f in GATHER.items() if f == (value, grad, hess))
+
+
+def gather_plain(inp, grid, opts, mode):
+    """The plain cores of one gather mode, in the kernel's output order."""
+    v, g, h = GATHER[mode]
+    return [core(inp, grid, *opts) for on, core in (
+        (v, ndkernels.pull_core), (g, ndkernels.grad_core),
+        (h, ndkernels.hess_core)) if on]
+
+
+def gather_kernel(inp, grid, opts, mode):
+    v, g, h = GATHER[mode]
+    return [t for t in cuda_scattered.gather_cuda(inp, grid, *opts, value=v,
+                                                  grad=g, hess=h)
+            if t is not None]
+
+
+def splat_kernel(vals, grid, oshape, opts, mode):
+    return cuda_scattered.splat_cuda(vals, grid, oshape, *opts,
+                                     spec=mode[3:])
+
+
+def sc_cloud(ish, P, seed, B=1, C=2):
+    """Volume N(0,1) and P points uniform over [-2.5, n + 1.5] per axis:
+    outliers on both sides of every axis."""
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=DEV)
+    inp = torch.tensor(rng.standard_normal((B, C) + tuple(ish)), **f32)
+    g = -2.5 + (np.asarray(ish) + 3.0) * rng.uniform(size=(B, P, len(ish)))
+    return inp, torch.tensor(g, **f32)
+
+
+def sc_check(errs, tag, inp, grid, orders, bounds, ex, oshape=None):
+    """Every gather mode and splat spec against the plain cores; fused
+    modes equal to the single ones; every splat equal across two runs."""
+    opts = (orders, bounds, ex)
+    B, C = inp.shape[:2]
+    P, D = grid.shape[1:]
+    oshape = oshape or tuple(inp.shape[2:])
+    outs = {}
+    for mode in GATHER:
+        outs[mode] = gather_kernel(inp, grid, opts, mode)
+        for k, r in zip(outs[mode], gather_plain(inp, grid, opts, mode)):
+            hold(errs, mode, tag, k, r)
+    (v, g), (g2, h) = outs["sc_value+grad"], outs["sc_grad+hess"]
+    if not (torch.equal(v, outs["sc_value"][0])
+            and torch.equal(g, outs["sc_grad"][0]) and torch.equal(g2, g)
+            and torch.equal(h, outs["sc_hess"][0])):
+        raise AssertionError(f"{tag}: fused and single gather modes differ")
+    for k, (mode, (core, nd)) in enumerate(SPLAT.items()):
+        vals = cotangent((B, C, P) + (D,) * nd, 40 + k)
+        out = splat_kernel(vals, grid, oshape, opts, mode)
+        if not torch.equal(out, splat_kernel(vals, grid, oshape, opts,
+                                             mode)):
+            raise AssertionError(f"{tag}: {mode} differs between runs")
+        hold(errs, mode, tag, out, core(vals, grid, oshape, *opts))
+
+
+def phase_sc_kernels(errs) -> None:
+    """Kernels 3 and 4 against the plain cores on the card: orders 0-7 x
+    the seven bounds x extrapolate 0/1/2, D = 1/2/3, odd shapes, points
+    outside the volume, another output shape, a dense cloud."""
+    def fmt():
+        return ", ".join(f"{m[3:]} {errs[m]:.3g}" for m in SC_MODES)
+    n = 0
+    for o in range(8):
+        for b in range(7):
+            ex = (o + b) % 3
+            inp, grid = sc_cloud((12, 13, 20), 2000, 10 * o + b)
+            sc_check(errs, f"scattered order {o} bound {b} ex {ex}", inp,
+                     grid, (o,) * 3, (b,) * 3, ex)
+            n += 1
+    log(f"scattered kernels vs plain: orders 0-7 x bounds 0-6 x "
+        f"extrapolate 0/1/2 ({n} cases, C=2, (12,13,20), 2000 points over "
+        f"[-2.5, n+1.5]): max err so far {fmt()}; fused = single and two "
+        f"runs of every splat torch.equal")
+    for tag, (ish, P, seed, B, C), orders, bounds, ex, osh in [
+            ("odd shape B=2 C=3 (19,24,37), orders (3,2,1), bounds "
+             "(0,4,5)", ((19, 24, 37), 5000, 1, 2, 3), (3, 2, 1),
+             (0, 4, 5), 1, None),
+            ("2-D B=2 (40,33), orders (3,1), bounds (3,4), hist",
+             ((40, 33), 3000, 2, 2, 2), (3, 1), (3, 4), 2, None),
+            ("1-D (50,), order 5, dft", ((50,), 500, 3, 1, 2), (5,), (6,),
+             1, None),
+            ("2-D orders (7,0), bounds (6,1), splat onto (23,31)",
+             ((17, 19), 1500, 4, 1, 2), (7, 0), (6, 1), 0, (23, 31)),
+            ("cubic dct2, splat onto (13,17,9)",
+             ((12, 13, 20), 3000, 5, 1, 2), (3, 3, 3), (3, 3, 3), 1,
+             (13, 17, 9))]:
+        inp, grid = sc_cloud(ish, P, seed, B, C)
+        sc_check(errs, tag, inp, grid, orders, bounds, ex, osh)
+        log(f"scattered kernels vs plain: {tag}: ok")
+    # the dense-cloud regime of P7: one point per voxel (8^3 boxes)
+    inp, warp = warp_case(1, 2, (32, 32, 32), 1.0, 6)
+    sc_check(errs, "dense cloud 32^3 points, identity + U(-1,1)", inp,
+             warp.reshape(1, -1, 3), (3, 3, 3), (3, 3, 3), 0)
+    log(f"scattered kernels vs plain: dense cloud 32^3: ok; max err "
+        f"{fmt()}")
+
+
+class ScSpy:
+    """Keep the first call of each gather mode and splat spec of
+    ``ops/pushpull.py`` in a run (inputs and the kernel's outputs), so
+    that they can be held to the plain cores on the same inputs.  The
+    dispatchers still launch the kernels and count them."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        self._gather, self._splat = pushpull._gather, pushpull._splat
+
+        def gather(inp, grid, opts, value=False, grad=False, hess=False):
+            out = self._gather(inp, grid, opts, value, grad, hess)
+            mode = gather_mode(value, grad, hess)
+            if grid.shape[-1] <= 3 and mode not in self.calls:
+                self.calls[mode] = (inp.clone(), grid.clone(), None, opts,
+                                    [t.clone() for t in out
+                                     if t is not None])
+            return out
+
+        def splat(vals, grid, oshape, opts, spec):
+            out = self._splat(vals, grid, oshape, opts, spec)
+            if f"sc_{spec}" not in self.calls:
+                self.calls[f"sc_{spec}"] = (vals.clone(), grid.clone(),
+                                            oshape, opts, [out.clone()])
+            return out
+        pushpull._gather, pushpull._splat = gather, splat
+        return self
+
+    def __exit__(self, *exc):
+        pushpull._gather, pushpull._splat = self._gather, self._splat
+
+    def hold(self, errs, tag, modes):
+        for mode in modes:
+            if mode not in self.calls:
+                raise AssertionError(f"{tag}: {mode} never ran")
+            inp, grid, oshape, opts, outs = self.calls.pop(mode)
+            refs = gather_plain(inp, grid, opts, mode) if mode in GATHER \
+                else [SPLAT[mode][0](inp, grid, oshape, *opts)]
+            e = max(hold(errs, mode, tag, k, r) for k, r in zip(outs, refs))
+            log(f"{tag}: {mode} kernel {tuple(outs[0].shape)} vs plain on "
+                f"the same inputs: err {e:.3g}")
+        self.calls.clear()
+
+
+def sc_data():
+    """The JAX suite's scattered data (scripts/bench_suite.py:183-204):
+    a 256^3 N(0,1) volume and 1M points uniform in [0, 255]^3 (numpy seed
+    0), 1M N(0,1) values (seed 7), all float32."""
+    rng = np.random.default_rng(0)
+    f32 = dict(dtype=torch.float32, device=DEV)
+    vol = torch.tensor(rng.standard_normal((1,) + (SC_N,) * 3)
+                       .astype(np.float32), **f32)
+    pts = torch.tensor(rng.uniform(0, SC_N - 1, (SC_P, 3))
+                       .astype(np.float32), **f32)
+    vals = torch.tensor(np.random.default_rng(7).standard_normal((1, SC_P))
+                        .astype(np.float32), **f32)
+    return vol, pts, vals
+
+
+def finite(tag, *ts):
+    if not all(torch.isfinite(t).all() for t in ts):
+        raise AssertionError(f"{tag}: non-finite output")
+
+
+def phase_sc_main(errs, drive) -> dict:
+    """P5-P7 at full width: the scattered forward, its training and second
+    order, and the affine reslice with its gradient."""
+    vol, pts, vals = sc_data()
+    N, P = SC_N, SC_P
+    cubic = dict(interpolation=3, bound="dct2", extrapolate=True)
+    # the API's point-cloud layout: grid (P, 1, 1, 3), values (1, P, 1, 1)
+    pts_g, vals_g = pts.reshape(P, 1, 1, 3), vals.reshape(1, P, 1, 1)
+    with torch.no_grad(), ScSpy() as spy:
+        pull, grad, push, count = drive(
+            f"P5: grid_pull, grid_grad, grid_push, grid_count of {P} points "
+            f"in {N}^3, cubic dct2 extrapolate",
+            lambda: (grid_pull(vol, pts_g, **cubic),
+                     grid_grad(vol, pts_g, **cubic),
+                     grid_push(vals_g, pts_g, shape=(N,) * 3, **cubic),
+                     grid_count(pts_g, shape=(N,) * 3, **cubic)),
+            {"sc_value": (1, 1), "sc_grad": (1, 1), "sc_push": (2, 2),
+             "sc_hess": (0, 0), "value": (0, 0), "push": (0, 0)})
+        spy.hold(errs, "P5", ["sc_value", "sc_grad", "sc_push"])
+    finite("P5", pull, grad, push, count)
+    if pull.shape != (1, P, 1, 1) or grad.shape != (1, P, 1, 1, 3) \
+            or push.shape != (1, N, N, N) or count.shape != (N, N, N):
+        raise AssertionError(f"P5 shapes {pull.shape} {grad.shape} "
+                             f"{push.shape} {count.shape}")
+    # dct2 folds keep mass: the count sums to P, the push to sum(vals)
+    mass = (count.double().sum().item(), push.double().sum().item(),
+            vals.double().sum().item())
+    if not (abs(mass[0] / P - 1) < 1e-5 and abs(mass[1] - mass[2])
+            < 1e-5 * vals.abs().sum().item()):
+        raise AssertionError(f"P5: mass not kept {mass}")
+    log(f"P5: sum(count) {mass[0]:.3f} (P = {P}), sum(push) {mass[1]:.4f} "
+        f"vs sum(values) {mass[2]:.4f}; pull std {pull.std().item():.4f}")
+    del grad, push, count
+
+    vr, pr = vol.clone().requires_grad_(), pts_g.clone().requires_grad_()
+
+    def p6():
+        out = []
+        for fn in (grid_pull, grid_grad):
+            loss = (fn(vr, pr, **cubic) ** 2).sum()
+            out.append((loss.item(),
+                        *torch.autograd.grad(loss, [vr, pr])))
+        return out
+    with ScSpy() as spy:
+        res = drive(
+            f"P6: gradient in volume and points of sum(grid_pull**2) and of "
+            f"sum(grid_grad**2), {P} points in {N}^3", p6,
+            {"sc_value+grad": (1, 1), "sc_push": (1, 1),
+             "sc_grad+hess": (1, 1), "sc_pushgrad": (1, 1),
+             "sc_value": (0, 0), "sc_grad": (0, 0), "sc_hess": (0, 0)})
+        spy.hold(errs, "P6 backward", ["sc_value+grad", "sc_push",
+                                       "sc_grad+hess", "sc_pushgrad"])
+    for (loss, dv, dp), name in zip(res, ("pull", "grad")):
+        finite(f"P6 {name}", dv, dp)
+        log(f"P6 {name}: loss {loss:.6g}, |d vol| max "
+            f"{dv.abs().max().item():.4g}, |d points| max "
+            f"{dp.abs().max().item():.4g}")
+    del res
+
+    def p6b():
+        out = []
+        for fn in (grid_pull, grid_grad):
+            loss = (fn(vr, pr, **cubic) ** 2).sum()
+            (dp,) = torch.autograd.grad(loss, [pr], create_graph=True)
+            out.append(torch.autograd.grad(dp.square().sum(), [vr, pr]))
+        return out
+    with ScSpy() as spy:
+        res = drive(
+            f"P6b: second order, gradient in volume and points of "
+            f"|d_points sum(op**2)|^2 for grid_pull and grid_grad, {P} "
+            f"points in {N}^3", p6b,
+            {"sc_value+grad": (1, 1), "sc_grad+hess": (1, 1),
+             "sc_hess": (1, 1), "sc_pushhess": (1, 1),
+             "sc_push": (2, 2), "sc_pushgrad": (3, 3)})
+        spy.hold(errs, "P6b backward", ["sc_hess", "sc_pushhess"])
+    for (dv, dp), name in zip(res, ("pull", "grad")):
+        finite(f"P6b {name}", dv, dp)
+    log("P6b: second-order gradients finite")
+    del res, vr, pr
+
+    # P7: a 10 degree rotation about the centre (axes 0, 1) and a 2-voxel
+    # shift along axis 0: 256^3 points sampled from the 256^3 volume
+    c = (N - 1) / 2
+    t = math.radians(10.0)
+    rot = np.array([[math.cos(t), -math.sin(t), 0], [math.sin(t),
+                    math.cos(t), 0], [0, 0, 1]])
+    mat = np.eye(4)
+    mat[:3, :3] = rot
+    mat[:3, 3] = np.full(3, c) - rot @ np.full(3, c) + np.array([2, 0, 0])
+    vol7 = vol[0]
+    fixed = 0.9 * vol7
+    mat_t = torch.tensor(mat, dtype=torch.float32, device=DEV)
+
+    def p7():
+        m, v = mat_t.clone().requires_grad_(), vol7.clone().requires_grad_()
+        out = grid_pull(v, affine_grid(m, (N,) * 3), 3, "dct2")
+        loss = ((out - fixed) ** 2).mean()
+        return (loss.item(), *torch.autograd.grad(loss, [v, m]))
+    with ScSpy() as spy:
+        loss, dv, dm = drive(
+            f"P7: affine reslice (10 deg about the centre + 2 voxels) of "
+            f"{N}^3, cubic dct2, gradient of the MSE in volume and matrix",
+            p7, {"sc_value+grad": (1, 1), "sc_push": (1, 1),
+                 "sc_value": (0, 0)})
+        spy.hold(errs, "P7", ["sc_value+grad", "sc_push"])
+    finite("P7", dv, dm)
+    log(f"P7: loss {loss:.6g}, d matrix {dm[:3].flatten().tolist()}")
+    return dict(vol=vol, pts=pts, vals=vals, mat=mat_t)
+
+
+def phase_sc_times(card, errs, sc) -> dict:
+    """Each scattered mode at P5's shapes (1M points, 256^3, cubic dct2
+    extrapolate, C=1), and P7's reslice: kernel and plain times, peak
+    memory, bound."""
+    N, P = SC_N, SC_P
+    vol = sc["vol"].reshape(1, 1, N, N, N)
+    pts = sc["pts"].reshape(1, P, 3)
+    vals = sc["vals"].reshape(1, 1, P)
+    opts = SC_OPTS
+    T = 4
+    vb, gb = 4 * N ** 3, 12 * P
+    ops_pull = {"sc_value": 2 * P * (T**3 + T**2 + T),
+                "sc_grad": 2 * P * (2 * T**3 + 3 * T**2 + 3 * T),
+                "sc_hess": 2 * P * (3 * T**3 + 6 * T**2 + 6 * T)}
+    ops_pull["sc_value+grad"] = ops_pull["sc_grad"] + 2 * P * T**3
+    ops_pull["sc_grad+hess"] = ops_pull["sc_hess"] + 2 * P * T**3
+    # (least bytes: inputs read once, outputs written once; FMAs as 2)
+    work = {m: (vb + gb + 4 * P * w, ops_pull[m]) for m, w in
+            (("sc_value", 1), ("sc_grad", 3), ("sc_hess", 9),
+             ("sc_value+grad", 4), ("sc_grad+hess", 12))}
+    work.update({"sc_push": (gb + 4 * P + vb, P * (2 * T**3 + T**2)),
+                 "sc_pushgrad": (gb + 12 * P + vb, P * (4 * T**3 + 4 * T**2)),
+                 "sc_pushhess": (gb + 36 * P + vb,
+                                 P * (12 * T**3 + 12 * T**2))})
+    cts = {"sc_push": vals, "sc_pushgrad": cotangent((1, 1, P, 3), 50),
+           "sc_pushhess": cotangent((1, 1, P, 3, 3), 51)}
+    times = {}
+    with torch.no_grad():
+        for mode in SC_MODES:
+            if mode in GATHER:
+                kern = lambda m=mode: gather_kernel(vol, pts, opts, m)
+                plain = lambda m=mode: gather_plain(vol, pts, opts, m)
+            else:
+                kern = lambda m=mode: splat_kernel(cts[m], pts, (N,) * 3,
+                                                   opts, m)
+                plain = lambda m=mode: SPLAT[m][0](cts[m], pts, (N,) * 3,
+                                                   *opts)
+            k_out, p_out = kern(), plain()
+            for k, r in zip(k_out if mode in GATHER else [k_out],
+                            p_out if mode in GATHER else [p_out]):
+                hold(errs, mode, f"{P} points {mode}", k, r)
+            if mode in SPLAT and not torch.equal(kern(), k_out):
+                raise AssertionError(f"{mode} differs between runs")
+            del k_out, p_out
+            k_ms, p_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
+            k_mib, p_mib = peak_mib(kern), peak_mib(plain)
+            b_ms, b_by = bound(*work[mode])
+            times[mode] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                               bound_by=b_by)
+            log(f"time {mode} {P} points in {N}^3 C=1 cubic dct2 "
+                f"extrapolate: kernel {k_ms:.3f} ms (median of 20, peak "
+                f"+{k_mib:.0f} MiB), plain {p_ms:.3f} ms (median of 3, "
+                f"peak +{p_mib:.0f} MiB), bound {b_ms:.4f} ms ({b_by}: "
+                f"{work[mode][0] / 1e6:.1f} MB, "
+                f"{work[mode][1] / 1e9:.2f} GFLOP) [{card}]")
+        log(f"splat run-to-run at {P} points: every spec torch.equal")
+        # P7's shapes: the reslice pull and its image adjoint, one point per
+        # voxel (the dense-cloud regime of the splat)
+        grid = affine_grid(sc["mat"], (N,) * 3).reshape(1, -1, 3)
+        ct = cotangent((1, 1, N ** 3), 52)
+        for mode, kern, plain, nbytes in [
+                ("sc_value",
+                 lambda: gather_kernel(vol, grid, opts[:2] + (0,),
+                                       "sc_value")[0],
+                 lambda: gather_plain(vol, grid, opts[:2] + (0,),
+                                      "sc_value")[0], vb + 12 * N**3 + vb),
+                ("sc_push",
+                 lambda: splat_kernel(ct, grid, (N,) * 3, opts[:2] + (0,),
+                                      "sc_push"),
+                 lambda: SPLAT["sc_push"][0](ct, grid, (N,) * 3,
+                                             *opts[:2], 0),
+                 12 * N**3 + vb + vb)]:
+            name = f"P7 reslice {'pull' if mode in GATHER else 'push'} " \
+                f"({mode})"
+            # N(0,1) values at full size: the dense-cloud regime held to
+            # the plain version (P7's own cotangents are ~1e-7)
+            e = hold(errs, mode, name, kern(), plain())
+            k_ms, p_ms = cuda_ms(kern, 10), cuda_ms(plain, 3)
+            k_mib = peak_mib(kern)
+            log(f"time {name} {N}^3 points from {N}^3 cubic dct2: kernel "
+                f"{k_ms:.3f} ms (median of 10, peak +{k_mib:.0f} MiB), "
+                f"plain {p_ms:.3f} ms (median of 3), bound "
+                f"{bound(nbytes, 0)[0]:.4f} ms ({nbytes / 1e6:.1f} MB), "
+                f"err vs plain {e:.3g} [{card}]")
+    return times
+
+
+def phase_library(card, main, sc) -> None:
+    """The one PyTorch call that computes the same function where there is
+    one: at order 1, bound zero, extrapolate, F.grid_sample (5-D bilinear,
+    align_corners, zeros) is pull and its input gradient is push.  Each is
+    held to the plain version on the coordinates it computes with (it
+    rounds voxel coordinates through [-1, 1] in float32, ~1e-5 voxel at
+    256), then timed beside the kernel at order 1."""
+    import torch.nn.functional as F
+
+    def normalized(g, shape):
+        # voxel (i, j, k) -> grid_sample's (x, y, z) = (k, j, i) in [-1, 1]
+        scale = torch.tensor([2 / (n - 1) for n in shape], device=DEV)
+        gn = (g * scale - 1).flip(-1)
+        # the voxel coordinates grid_sample samples at (align_corners)
+        size = torch.tensor([n - 1 for n in shape], device=DEV,
+                            dtype=g.dtype)
+        return gn, (((gn.flip(-1) + 1) / 2) * size).contiguous()
+
+    N, P = SC_N, SC_P
+    moving, flow = main["moving"], main["flow"]
+    vol, pts = sc["vol"].reshape(1, 1, N, N, N), sc["pts"].reshape(1, P, 3)
+    vals = sc["vals"].reshape(1, 1, P)
+    o1 = ((1, 1, 1), (0, 0, 0), 1)
+    dense_g, dense_at = normalized(flow, MAIN_VOL)
+    cloud_g, cloud_at = normalized(pts, (N,) * 3)
+    cloud_g = cloud_g.reshape(1, 1, 1, P, 3)
+    rows = [
+        ("dense pull (warp value)", moving, dense_g, None,
+         lambda: cuda_warp.warp_cuda(moving, flow, *o1, 4.0)[0],
+         lambda g: _pull_impl_torch(moving, g, *o1, 4.0), dense_at),
+        ("dense push", moving, dense_g, moving,
+         lambda: cuda_warp.push_cuda(moving, flow, *o1, 4.0),
+         lambda g: _push_impl_torch(moving, g, *o1, 4.0), dense_at),
+        ("scattered pull (sc_value)", vol, cloud_g, None,
+         lambda: gather_kernel(vol, pts, o1, "sc_value")[0],
+         lambda g: ndkernels.pull_core(vol, g, *o1), cloud_at),
+        ("scattered push (sc_push)", vol, cloud_g, vals,
+         lambda: splat_kernel(vals, pts, (N,) * 3, o1, "sc_push"),
+         lambda g: ndkernels.push_core(vals, g, (N,) * 3, *o1), cloud_at)]
+    for name, inp, g, ct, kern, plain, lib_at in rows:
+        if ct is None:
+            def lib(inp=inp, g=g):
+                return F.grid_sample(inp, g, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=True)
+        else:
+            leaf = inp.detach().clone().requires_grad_()
+            out = F.grid_sample(leaf, g, mode="bilinear",
+                                padding_mode="zeros", align_corners=True)
+            ctr = ct.reshape(out.shape)
+
+            def lib(out=out, leaf=leaf, ctr=ctr):
+                return torch.autograd.grad(out, leaf, ctr,
+                                           retain_graph=True)[0]
+        grid0 = flow if "dense" in name else pts
+        with torch.no_grad():
+            ref_lib, ref = plain(lib_at), plain(grid0)
+            e_lib, t_lib = rel_err(lib().reshape(ref.shape), ref_lib)
+            e_k, t_k = rel_err(kern().reshape(ref.shape), ref)
+            if not (e_lib <= t_lib and e_k <= t_k):
+                raise AssertionError(f"library {name}: grid_sample err "
+                                     f"{e_lib:.3g}, kernel err {e_k:.3g}")
+            del ref, ref_lib
+            l_ms, k_ms = cuda_ms(lib, 10), cuda_ms(kern, 10)
+        log(f"library {name}, order 1 zero extrapolate: grid_sample "
+            f"{l_ms:.3f} ms (err vs plain {e_lib:.3g}), kernel {k_ms:.3f} "
+            f"ms (err {e_k:.3g}), median of 10 [{card}]")
 
 
 def short(kernel_name: str) -> str:
@@ -650,23 +1118,39 @@ def main() -> None:
     t0 = time.perf_counter()
     card = phase_card()
     phase_build()
-    errs = {m: 0.0 for m in MODES}
+    errs = {m: 0.0 for m in ALL_MODES}
     drive = Drive()
     phase_kernels(errs)
+    phase_sc_kernels(errs)
     phase_train_small()
     main_path = phase_main(errs, drive)
     train = phase_train_main(errs, drive)
+    sc = phase_sc_main(errs, drive)
     times = phase_times(card, errs, main_path, train)
+    times.update(phase_sc_times(card, errs, sc))
+    phase_library(card, main_path, sc)
     phase_profile(train)
-    sources = {"push": "push.cu", "pushgrad": "push.cu"}
-    lines = {"push": 619, "pushgrad": 619}
-    kernels = [
-        {"name": m if m in sources else f"warp_{m}", "route": "cuda",
-         "source": f"interpol_tpu_torch/csrc/{sources.get(m, 'warp.cu')}",
-         "replaces": f"interpol_tpu/ops/pallas_warp.py:{lines.get(m, 160)}",
-         "launches": drive.total[m], "max_abs_err": errs[m],
-         **times[m], "library_ms": None}
-        for m in MODES]
+    missing = [m for m in ALL_MODES if drive.total[m] == 0]
+    if missing:
+        raise AssertionError(f"modes never launched on a main path: "
+                             f"{missing}")
+
+    def row(m):
+        if m in SC_MODES:
+            src_, line = ("gather.cu", "scattered.py:324") if m in GATHER \
+                else ("splat.cu", "scattered.py:997")
+            name = m
+        else:
+            src_ = "push.cu" if m in ("push", "pushgrad") else "warp.cu"
+            line = "pallas_warp.py:619" if src_ == "push.cu" \
+                else "pallas_warp.py:160"
+            name = m if src_ == "push.cu" else f"warp_{m}"
+        return {"name": name, "route": "cuda",
+                "source": f"interpol_tpu_torch/csrc/{src_}",
+                "replaces": f"interpol_tpu/ops/{line}",
+                "launches": drive.total[m], "max_abs_err": errs[m],
+                **times[m], "library_ms": None}
+    kernels = [row(m) for m in ALL_MODES]
     log(f"total run time {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

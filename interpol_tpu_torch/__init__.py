@@ -1,17 +1,18 @@
 """interpol_tpu_torch — PyTorch/CUDA port of interpol_tpu.
 
-The dense-warp path, ported from the JAX package beside it
-(``interpol_tpu/``, the reference): options and primitives (boundary
-folding, B-spline taps), the plain gather and the dense-warp window tier
-with its hand-wired adjoints (``torch.autograd.Function``s), the separable
-``resize``, ``grid_pull`` / ``grid_push`` / ``grid_count`` / ``grid_grad``
+Ported from the JAX package beside it (``interpol_tpu/``, the reference):
+options and primitives (boundary folding, B-spline taps), the plain
+gather and scatter cores, the dense-warp window tier and the generic
+push/pull tier with their hand-wired adjoints (``torch.autograd.Function``s,
+differentiable to second order and beyond), the separable ``resize``,
+``grid_pull`` / ``grid_push`` / ``grid_count`` / ``grid_grad`` on any grid
 with the grid constructors, the deformation-field algebra
 (``ops/flow.py``), and the registration models ``WarpModel`` and
 ``SVFModel`` with their train steps.  CPU tensors run plain PyTorch; CUDA
 tensors run the hand-written Hopper kernels (``csrc/warp.cu``,
-``csrc/push.cu``), built with nvcc at first use.  There is no backend
-switch: the tensors' device decides, and the models live on the card
-unless the caller asks for the CPU.
+``csrc/push.cu``, ``csrc/gather.cu``, ``csrc/splat.cu``), built with nvcc
+at first use.  There is no backend switch: the tensors' device decides,
+and the models live on the card unless the caller asks for the CPU.
 """
 from . import options  # noqa: F401
 from . import models, ops, utils  # noqa: F401

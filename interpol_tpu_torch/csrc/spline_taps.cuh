@@ -1,8 +1,10 @@
-// Per-axis B-spline taps of one sample, shared by the dense-warp gather
-// (warp.cu) and splat (push.cu) kernels so that the two cannot drift
-// apart: the kernel parameters, boundary folding (ops/bounds.py), the
-// Cox-de Boor tap weights and their first and second derivatives
-// (ops/splines.py), and the window test of one axis (ops/window.py).
+// Per-axis B-spline taps of one sample, shared by every kernel of the port
+// so that they cannot drift apart: the kernel parameters, boundary folding
+// (ops/bounds.py), the Cox-de Boor tap weights and their first and second
+// derivatives (ops/splines.py), the node origin, the extrapolation mask
+// (ops/ndkernels.py::inbounds_mask) and the window test of one axis
+// (ops/window.py).  Users: the dense-warp gather (warp.cu) and splat
+// (push.cu), the scattered gather (gather.cu) and splat (splat.cu).
 
 #pragma once
 
@@ -15,6 +17,18 @@ struct WarpParams {
   int bound[3];
   int d0min[3];   // attainable node-origin offsets n0 - p of the window
   int d0max[3];
+  float thr_hi[3];  // (n - 1) + thr, rounded to float32 on the host
+  float thr_lo;     // -thr
+  int masked;       // extrapolate != 1
+};
+
+// A scattered cloud: B batches of P points (B, P, 3) in a volume of
+// ``shape``; C channels.
+struct PointParams {
+  long long B, C, P;
+  int shape[3];
+  int order[3];
+  int bound[3];
   float thr_hi[3];  // (n - 1) + thr, rounded to float32 on the host
   float thr_lo;     // -thr
   int masked;       // extrapolate != 1
@@ -153,24 +167,32 @@ __device__ __forceinline__ void bspline_taps(float t, float (&w)[NT],
   }
 }
 
-// One axis: window test, taps, folded offsets (index * stride) and signed
-// weights (and derivatives).  Bit j of ``live`` is set when tap j's fold
-// sign is not 0 (zero bound outside the volume, dst1 at its mirror nodes
-// carry sign 0).  Returns false when the sample gets no tap on this axis.
+// The kept-sample test of inbounds_mask: thr_lo < g < thr_hi[d] on every
+// axis, strict on both sides (a NaN coordinate fails it).
+__device__ __forceinline__ bool inside(float gx, float gy, float gz,
+                                       float thr_lo, const float* thr_hi) {
+  return gx > thr_lo && gx < thr_hi[0] && gy > thr_lo && gy < thr_hi[1] &&
+         gz > thr_lo && gz < thr_hi[2];
+}
+
+// First support node of a sample, as a float: order 0 rounds half to even
+// (rintf), as torch.round / jnp.round do.
+__device__ __forceinline__ float node_origin(float g, int order) {
+  return order == 0 ? rintf(g) : floorf(g - 0.5f * (float)(order - 1));
+}
+
+// The node origin as an index, clamped to +-2^30 so that a huge or NaN
+// coordinate (whose weights are NaN or meaningless) never overflows the
+// index arithmetic.
+__device__ __forceinline__ int node_index(float n0f) {
+  return (int)fminf(fmaxf(n0f, -1073741824.f), 1073741824.f);
+}
+
+// Unfolded weights (and derivatives) of the order+1 taps at offset t.
 template <int NT, bool GRAD, bool HESS>
-__device__ __forceinline__ bool axis_taps(float g, int p, int n, int order,
-                                          int bound, int d0min, int d0max,
-                                          long long stride,
-                                          long long (&off)[NT],
-                                          float (&w)[NT], float (&dw)[NT],
-                                          float (&hw)[NT], unsigned& live) {
-  // order 0 rounds half to even (rintf), as torch.round / jnp.round do
-  const float n0f =
-      order == 0 ? rintf(g) : floorf(g - 0.5f * (float)(order - 1));
-  const float d0 = n0f - (float)p;
-  // written so that a NaN coordinate fails the test
-  if (!(d0 >= (float)d0min && d0 <= (float)d0max)) return false;
-  const float t = g - n0f;
+__device__ __forceinline__ void axis_weights(float t, int order,
+                                             float (&w)[NT], float (&dw)[NT],
+                                             float (&hw)[NT]) {
 #define INTERPOL_TAPS_CASE(P) \
   case P:                     \
     bspline_taps<(P < NT ? P : NT - 1), NT, GRAD, HESS>(t, w, dw, hw); \
@@ -187,7 +209,18 @@ __device__ __forceinline__ bool axis_taps(float g, int p, int n, int order,
       bspline_taps<NT - 1, NT, GRAD, HESS>(t, w, dw, hw);
   }
 #undef INTERPOL_TAPS_CASE
-  const int n0 = (int)n0f;
+}
+
+// Fold the taps n0 .. n0+order of one axis through the bound: offsets
+// (folded index * stride) and signed weights (and derivatives).  Bit j of
+// ``live`` is set when tap j's fold sign is not 0 (zero bound outside the
+// volume, dst1 at its mirror nodes carry sign 0).
+template <int NT, bool GRAD, bool HESS>
+__device__ __forceinline__ void fold_taps(int n0, int n, int order,
+                                          int bound, long long stride,
+                                          long long (&off)[NT],
+                                          float (&w)[NT], float (&dw)[NT],
+                                          float (&hw)[NT], unsigned& live) {
   live = 0u;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
@@ -200,6 +233,24 @@ __device__ __forceinline__ bool axis_taps(float g, int p, int n, int order,
     if (GRAD) dw[j] *= s;
     if (HESS) hw[j] *= s;
   }
+}
+
+// One axis of a dense warp: window test, taps, folded offsets and signed
+// weights.  Returns false when the sample gets no tap on this axis.
+template <int NT, bool GRAD, bool HESS>
+__device__ __forceinline__ bool axis_taps(float g, int p, int n, int order,
+                                          int bound, int d0min, int d0max,
+                                          long long stride,
+                                          long long (&off)[NT],
+                                          float (&w)[NT], float (&dw)[NT],
+                                          float (&hw)[NT], unsigned& live) {
+  const float n0f = node_origin(g, order);
+  const float d0 = n0f - (float)p;
+  // written so that a NaN coordinate fails the test
+  if (!(d0 >= (float)d0min && d0 <= (float)d0max)) return false;
+  axis_weights<NT, GRAD, HESS>(g - n0f, order, w, dw, hw);
+  fold_taps<NT, GRAD, HESS>((int)n0f, n, order, bound, stride, off, w, dw,
+                            hw, live);
   return true;
 }
 

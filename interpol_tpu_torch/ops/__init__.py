@@ -1,6 +1,7 @@
-"""Operator tier: bounds/splines primitives, the plain gather, the
-dense-warp window tier with its adjoints and CUDA kernels, separable
-resize, the high-level API and the deformation-field algebra."""
+"""Operator tier: bounds/splines primitives, the plain gather and scatter
+cores, the dense-warp window tier and the generic push/pull tier with
+their adjoints and CUDA kernels, separable resize, the high-level API and
+the deformation-field algebra."""
 from . import (  # noqa: F401
-    bounds, splines, ndkernels, window, cuda_warp, separable, resize, api,
-    flow)
+    bounds, splines, ndkernels, window, cuda_warp, scattered, pushpull,
+    cuda_scattered, separable, resize, api, flow)

@@ -6,12 +6,12 @@ grids ``(..., *sp, D)`` in voxel coordinates (not torch's normalized
 [-1, 1]), ``grid_grad`` output ``(..., [C], *sp, D)``.  Batch dimensions of
 image and grid broadcast against each other.
 
-``max_disp`` selects the dense-warp path (``ops/window.py``: the CUDA
-kernels for CUDA tensors, the plain versions for CPU tensors), which is
-differentiable in image and grid through hand-wired adjoints; without it
-``grid_pull`` / ``grid_grad`` run the plain gather of ``ops/ndkernels.py``
-(differentiated by PyTorch's autograd), and ``grid_push`` /
-``grid_count`` raise until the generic push core is ported.
+``max_disp`` selects the dense-warp path (``ops/window.py``) for a grid
+with one sample per voxel; every other call takes the generic path
+(``ops/pushpull.py``), any grid and any output ``shape``.  Both run the
+CUDA kernels for CUDA tensors and the plain versions for CPU tensors, and
+both are differentiable in image and grid, to second order, through
+hand-wired adjoints.
 ``tile_spread`` is accepted and ignored (full window), as the JAX
 package's XLA tier ignores it.  Not ported yet, and raising
 ``NotImplementedError``: label maps (``classes=`` or integer input),
@@ -25,7 +25,7 @@ import torch
 
 from ..options import normalize_options
 from ..utils.shapes import expanded_shape
-from . import ndkernels as _nd
+from . import pushpull as _pp
 from . import window as _window
 
 __all__ = ["grid_pull", "grid_push", "grid_count", "grid_grad",
@@ -114,10 +114,6 @@ def _not_ported(input, classes, prefilter, check_spread, tile_spread,
             "Adaptive windows)")
 
 
-def _flat(grid):
-    return grid.reshape(grid.shape[0], -1, grid.shape[-1])
-
-
 # ------------------------------------------------- main ops
 
 def grid_pull(input, grid, interpolation="linear", bound="zero",
@@ -149,18 +145,8 @@ def grid_pull(input, grid, interpolation="linear", bound="zero",
         out = _window.pull_window(inp, grid, orders, bounds, ex,
                                   _md_norm(max_disp))
     else:
-        out = _nd.pull_core(inp, _flat(grid), orders, bounds, ex)
-        out = out.reshape(out.shape[:2] + grid.shape[1:-1])
+        out = _pp.pull(inp, grid, orders, bounds, ex)
     return _postproc(out, info, "pull")
-
-
-def _dense_only(fn, max_disp, shape, grid):
-    """grid_push / grid_count run the dense-warp path only."""
-    if max_disp is None or shape != tuple(grid.shape[1:-1]):
-        raise NotImplementedError(
-            f"{fn} without max_disp, or onto another shape than the "
-            f"grid's, needs the generic push core, which is not ported "
-            f"yet (ROADMAP queue 1 item 2)")
 
 
 def grid_push(input, grid, shape=None, interpolation="linear",
@@ -171,9 +157,9 @@ def grid_push(input, grid, shape=None, interpolation="linear",
 
     input : (..., [channel], *inshape) values at the grid's sites
     grid : (..., *inshape, dim) tensor of voxel coordinates
-    shape : output spatial shape; only the grid's own shape is ported
-    max_disp : required (the dense-warp path); other options as
-        :func:`grid_pull`.
+    shape : output spatial shape, default ``inshape``
+    max_disp : the dense-warp path when ``shape`` is the grid's own; other
+        options as :func:`grid_pull`.
 
     Returns (..., [channel], *shape).
     """
@@ -187,16 +173,20 @@ def grid_push(input, grid, shape=None, interpolation="linear",
     grid, inp, info = _preproc(grid, input, mode="push")
     shape = tuple(inp.shape[2:]) if shape is None \
         else tuple(int(s) for s in shape)
-    _dense_only("grid_push", max_disp, shape, grid)
-    out = _window.push_window(inp, grid, orders, bounds, ex,
-                              _md_norm(max_disp))
+    if (max_disp is not None and shape == tuple(inp.shape[2:])
+            and tuple(grid.shape[1:-1]) == shape):
+        out = _window.push_window(inp, grid, orders, bounds, ex,
+                                  _md_norm(max_disp))
+    else:
+        out = _pp.push(inp, grid, shape, orders, bounds, ex)
     return _postproc(out, info, "push")
 
 
 def grid_count(grid, shape=None, interpolation="linear", bound="zero",
                extrapolate=False, *, max_disp=None):
     """Splat unit weights: the density of the deformation field,
-    (..., *shape).  ``max_disp`` is required (the dense-warp path)."""
+    (..., *shape).  ``max_disp`` selects the dense-warp path when
+    ``shape`` is the grid's own."""
     grid = torch.as_tensor(grid)
     D = grid.shape[-1]
     orders, bounds, ex = normalize_options(interpolation, bound,
@@ -204,10 +194,12 @@ def grid_count(grid, shape=None, interpolation="linear", bound="zero",
     grid, info = _preproc(grid)
     shape = tuple(grid.shape[1:-1]) if shape is None \
         else tuple(int(s) for s in shape)
-    _dense_only("grid_count", max_disp, shape, grid)
-    ones = grid.new_ones((grid.shape[0], 1) + shape)
-    out = _window.push_window(ones, grid, orders, bounds, ex,
-                              _md_norm(max_disp))
+    if max_disp is not None and shape == tuple(grid.shape[1:-1]):
+        ones = grid.new_ones((grid.shape[0], 1) + shape)
+        out = _window.push_window(ones, grid, orders, bounds, ex,
+                                  _md_norm(max_disp))
+    else:
+        out = _pp.count(grid, shape, orders, bounds, ex)
     return _postproc(out, info, "count")
 
 
@@ -229,8 +221,7 @@ def grid_grad(input, grid, interpolation="linear", bound="zero",
         out = _window.grad_window(inp, grid, orders, bounds, ex,
                                   _md_norm(max_disp))
     else:
-        out = _nd.grad_core(inp, _flat(grid), orders, bounds, ex)
-        out = out.reshape(out.shape[:2] + grid.shape[1:-1] + (D,))
+        out = _pp.grad(inp, grid, orders, bounds, ex)
     return _postproc(out, info, "grad")
 
 

@@ -1,0 +1,266 @@
+"""Wrappers of the scattered CUDA kernels (``csrc/gather.cu``,
+``csrc/splat.cu``).
+
+The Hopper counterparts of ``interpol_tpu/ops/scattered.py``:
+``_gather_kernel`` in value, grad, hess, value+grad and grad+hess modes
+(``gather_cuda``) and ``_splat_kernel`` in push, pushgrad and pushhess
+specs (``splat_cuda``); see the notes at the top of the sources.  Their
+plain PyTorch versions are ``ops/ndkernels.py``'s ``pull_core``,
+``grad_core``, ``hess_core``, ``push_core``, ``pushgrad_core`` and
+``pushhess_core``.  The host half of the tier (3-D lift, box schedule) is
+``ops/scattered.py``.
+
+Conventions of ``ops/cuda_warp.py``: CUDA float32 contiguous tensors only,
+anything else raises, nothing falls back to a plain version; an input that
+requires grad raises while grad mode is on; the launch runs on the current
+stream.  Each call adds one to ``LAUNCHES_BY_MODE`` under its mode.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ._patch import PatchGeom, patch_geom
+from .scattered import box_schedule, lift3, splat_box, splat_margins
+
+__all__ = ["gather_cuda", "splat_cuda", "LAUNCHES_BY_MODE",
+           "reset_launches", "SPECS"]
+
+LAUNCHES_BY_MODE: Dict[str, int] = {
+    "sc_value": 0, "sc_grad": 0, "sc_hess": 0, "sc_value+grad": 0,
+    "sc_grad+hess": 0, "sc_push": 0, "sc_pushgrad": 0, "sc_pushhess": 0}
+
+# splat specs: kernel template number and value rows
+SPECS = {"push": (0, 1), "pushgrad": (1, 3), "pushhess": (2, 6)}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES_BY_MODE:
+        LAUNCHES_BY_MODE[k] = 0
+
+
+class _PointParams(ctypes.Structure):
+    """Mirror of ``struct PointParams`` in ``csrc/spline_taps.cuh``."""
+    _fields_ = [
+        ("B", ctypes.c_longlong),
+        ("C", ctypes.c_longlong),
+        ("P", ctypes.c_longlong),
+        ("shape", ctypes.c_int * 3),
+        ("order", ctypes.c_int * 3),
+        ("bound", ctypes.c_int * 3),
+        ("thr_hi", ctypes.c_float * 3),
+        ("thr_lo", ctypes.c_float),
+        ("masked", ctypes.c_int),
+    ]
+
+
+_fns = {}
+
+
+def _entry(name: str):
+    """``interpol_gather`` (csrc/gather.cu) or ``interpol_splat``,
+    ``interpol_splat_outliers``, ``interpol_splat_segsum``
+    (csrc/splat.cu), built at first use."""
+    if name not in _fns:
+        from ._build import load_library
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        pp = ctypes.POINTER(_PointParams)
+        lib = load_library("gather" if name == "gather" else "splat")
+        fn = getattr(lib, f"interpol_{name}")
+        fn.argtypes = {
+            "gather": [vp, vp, vp, vp, vp, pp, i, i, i, vp],
+            "splat": [vp, vp, vp, vp, vp, pp, ctypes.POINTER(PatchGeom), i,
+                      vp],
+            "splat_outliers": [vp, vp, vp, ll, ll, ll, vp, vp, pp, i, vp],
+            "splat_segsum": [vp, vp, ll, vp, pp, vp],
+        }[name]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return _fns[name]
+
+
+def _call(name, t, *args):
+    """Launch on ``t``'s device and current stream; raise on a refusal."""
+    fn = _entry(name)
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"interpol_{name} launch failed: cudaError_t "
+                           f"{err}")
+
+
+def _check(name, tensors, grid, orders, bounds):
+    for arg, t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, not CUDA")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel "
+                            f"takes float32 only")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} is not contiguous")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(
+                f"{name}: {arg} requires grad, and a direct kernel call "
+                f"would lose that gradient; call the differentiable "
+                f"ops/pushpull.py functions, or run under torch.no_grad()")
+        if t.device != grid.device:
+            raise ValueError(f"{name}: {arg} on {t.device}, grid on "
+                             f"{grid.device}")
+    if grid.ndim != 3 or not 1 <= grid.shape[-1] <= 3:
+        raise ValueError(f"{name}: need grid (B, P, D), D in 1..3; got "
+                         f"{tuple(grid.shape)}")
+    D = grid.shape[-1]
+    if len(orders) != D or len(bounds) != D \
+            or not all(0 <= int(o) <= 7 for o in orders) \
+            or not all(0 <= int(b) <= 6 for b in bounds):
+        raise ValueError(f"{name}: one order in 0..7 and one bound in 0..6 "
+                         f"per axis; got {orders}, {bounds}")
+
+
+def _params(B, C, P, shape3, orders3, bounds3, extrapolate):
+    p = _PointParams()
+    p.B, p.C, p.P = B, C, P
+    thr = 0.05 if extrapolate == 0 else 0.55
+    for d in range(3):
+        p.shape[d] = shape3[d]
+        p.order[d] = int(orders3[d])
+        p.bound[d] = int(bounds3[d])
+        # the same float32 constants the plain mask compares against
+        p.thr_hi[d] = float(torch.tensor((shape3[d] - 1) + thr,
+                                         dtype=torch.float32))
+    p.thr_lo = float(torch.tensor(-thr, dtype=torch.float32))
+    p.masked = int(extrapolate != 1)
+    return p
+
+
+def gather_cuda(inp: torch.Tensor, grid: torch.Tensor,
+                orders: Sequence[int], bounds: Sequence[int],
+                extrapolate: int, value: bool = True, grad: bool = False,
+                hess: bool = False
+                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+                           Optional[torch.Tensor]]:
+    """Scattered pull, spatial gradient and/or Hessian on the card.
+
+    inp (B, C, *ishape), grid (B, P, D), D in 1..3.  Returns ``(val,
+    grad, hess)``: (B, C, P), (B, C, P, D), (B, C, P, D, D), each None
+    unless asked for.  Modes: value, grad, hess, value+grad, grad+hess.
+    Same semantics as ``ndkernels.pull_core`` / ``grad_core`` /
+    ``hess_core``.
+    """
+    name = "gather_cuda"
+    mode = "+".join(m for m, on in (("value", value), ("grad", grad),
+                                    ("hess", hess)) if on)
+    if mode not in ("value", "grad", "hess", "value+grad", "grad+hess"):
+        raise ValueError(f"{name}: no kernel mode {mode or 'none'}")
+    _check(name, [("inp", inp), ("grid", grid)], grid, orders, bounds)
+    B, P, D = grid.shape
+    C = inp.shape[1]
+    ishape = tuple(inp.shape[2:])
+    if inp.ndim != D + 2 or inp.shape[0] != B:
+        raise ValueError(f"{name}: need inp (B, C, *ishape) with {D} "
+                         f"spatial axes; got {tuple(inp.shape)}")
+    grid3, shape3, orders3, bounds3 = lift3(grid, ishape, orders, bounds)
+    new = inp.new_empty
+    val = new((B, C, P)) if value else None
+    g3 = new((B, C, P, 3)) if grad else None
+    h3 = new((B, C, P, 3, 3)) if hess else None
+    if B * C * P and math.prod(ishape):
+        p = _params(B, C, P, shape3, orders3, bounds3, extrapolate)
+        _call("gather", inp, inp.data_ptr(), grid3.data_ptr(),
+              val.data_ptr() if value else None,
+              g3.data_ptr() if grad else None,
+              h3.data_ptr() if hess else None, ctypes.byref(p),
+              int(value), int(grad), int(hess))
+        LAUNCHES_BY_MODE[f"sc_{mode}"] += 1
+    g = g3[..., :D] if grad and D < 3 else g3
+    h = h3[..., :D, :D] if hess and D < 3 else h3
+    return (val, None if g is None else g.contiguous(),
+            None if h is None else h.contiguous())
+
+
+def _rows(vals, spec, D):
+    """The splat's value rows (C, NV, B*P) from (B, C, P[, D[, D]])."""
+    B, C, P = vals.shape[:3]
+    if spec == "push":
+        rows = vals[..., None]
+    elif spec == "pushgrad":
+        rows = torch.cat([vals, vals.new_zeros((B, C, P, 3 - D))], -1)
+    else:
+        full = vals.new_zeros((B, C, P, 3, 3))
+        full[..., :D, :D] = vals
+        rows = torch.stack(
+            [full[..., 0, 0], full[..., 1, 1], full[..., 2, 2],
+             full[..., 0, 1] + full[..., 1, 0],
+             full[..., 0, 2] + full[..., 2, 0],
+             full[..., 1, 2] + full[..., 2, 1]], -1)
+    return rows.permute(1, 3, 0, 2).reshape(C, rows.shape[-1], B * P)
+
+
+def splat_cuda(vals: torch.Tensor, grid: torch.Tensor,
+               oshape: Sequence[int], orders: Sequence[int],
+               bounds: Sequence[int], extrapolate: int,
+               spec: str = "push") -> torch.Tensor:
+    """Scattered splat on the card: the adjoint of :func:`gather_cuda` in
+    the image.
+
+    ``spec`` "push": vals (B, C, P); "pushgrad": (B, C, P, D); "pushhess":
+    (B, C, P, D, D) (both triangles count); grid (B, P, D), D in 1..3 ->
+    (B, C, *oshape).  Same semantics as ``ndkernels.push_core`` /
+    ``pushgrad_core`` / ``pushhess_core``; race-free, so two runs give the
+    same bits.  Takes a scratch buffer of the boxes' patches and, when
+    outliers exist, one of their (destination, contribution) pairs.
+    """
+    name = "splat_cuda"
+    if spec not in SPECS:
+        raise ValueError(f"{name}: spec {spec!r} not in {tuple(SPECS)}")
+    _check(name, [("vals", vals), ("grid", grid)], grid, orders, bounds)
+    B, P, D = grid.shape
+    extra = {"push": 0, "pushgrad": 1, "pushhess": 2}[spec]
+    if vals.ndim != 3 + extra or tuple(vals.shape[:1]) + \
+            tuple(vals.shape[2:]) != (B, P) + (D,) * extra:
+        raise ValueError(f"{name}: {spec} needs vals (B, C, P"
+                         f"{', D' * extra}); got {tuple(vals.shape)} for "
+                         f"grid {tuple(grid.shape)}")
+    C = vals.shape[1]
+    oshape = tuple(int(s) for s in oshape)
+    if len(oshape) != D:
+        raise ValueError(f"{name}: oshape {oshape} for a {D}-D cloud")
+    out = vals.new_empty((B, C) + oshape)
+    if not (B * C * P and math.prod(oshape)):
+        return out.zero_()
+    grid3, shape3, orders3, bounds3 = lift3(grid, oshape, orders, bounds)
+    kspec, _ = SPECS[spec]
+    p = _params(B, C, P, shape3, orders3, bounds3, extrapolate)
+    box = splat_box(shape3, P)
+    keys, perm, seg, nb = box_schedule(grid3, shape3, box, extrapolate)
+    coords = grid3.reshape(-1, 3).index_select(0, perm)
+    rows = _rows(vals, spec, D).index_select(2, perm).contiguous()
+    margins = [splat_margins(o) for o in orders3]
+    lo = tuple(m[0] for m in margins)
+    extent = tuple(t + m[1] - m[0] for t, m in zip(box, margins))
+    geom, scratch, tables = patch_geom(B, C, shape3, bounds3, box, lo,
+                                       extent, vals.device)
+    _call("splat", vals, coords.data_ptr(), rows.data_ptr(),
+          seg.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+          ctypes.byref(p), ctypes.byref(geom), kspec)
+    ntile = math.prod(nb)
+    begin, end = seg[B * ntile:B * ntile + B + 1:B].tolist()
+    if end > begin:
+        nt = max(orders3) + 1
+        count = end - begin
+        dest = torch.empty(count * nt ** 3, dtype=torch.int64,
+                           device=vals.device)
+        contrib = vals.new_empty((C, count * nt ** 3))
+        _call("splat_outliers", vals, coords.data_ptr(), rows.data_ptr(),
+              keys.data_ptr(), begin, count, B * ntile, dest.data_ptr(),
+              contrib.data_ptr(), ctypes.byref(p), kspec)
+        dest, order = torch.sort(dest, stable=True)
+        contrib = contrib.index_select(1, order)
+        _call("splat_segsum", vals, dest.data_ptr(), contrib.data_ptr(),
+              dest.numel(), out.data_ptr(), ctypes.byref(p))
+    LAUNCHES_BY_MODE[f"sc_{spec}"] += 1
+    return out

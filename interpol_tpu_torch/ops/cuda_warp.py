@@ -8,7 +8,9 @@ The Hopper counterparts of ``interpol_tpu/ops/pallas_warp.py``:
 PyTorch versions are ``ops/window.py``'s ``_pull_impl_torch``,
 ``_grad_impl_torch``, ``_hess_impl_torch``, ``_push_impl_torch`` and
 ``_pushgrad_impl_torch``, a different formulation (shift-FMA), so
-comparing the two on the card is a real check.
+comparing the two on the card is a real check.  The push is the race-free
+patch splat (``csrc/patch_splat.cuh``, host half in ``ops/_patch.py``):
+two runs give the same bits.
 
 Each wrapper takes CUDA float32 contiguous tensors only and raises on
 anything else; it never falls back to the plain version.  It also raises
@@ -26,6 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ._patch import PatchGeom, patch_geom
 from .window import _md_tuple, window_range
 
 __all__ = ["warp_cuda", "hess_cuda", "push_cuda", "LAUNCHES",
@@ -81,7 +84,8 @@ def _entry(name: str):
                            i, i, i, vp]
         else:
             fn = load_library("push").interpol_push
-            fn.argtypes = [vp, vp, vp, ctypes.POINTER(_WarpParams), i, vp]
+            fn.argtypes = [vp, vp, vp, vp, ctypes.POINTER(_WarpParams),
+                           ctypes.POINTER(PatchGeom), i, vp]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -223,6 +227,11 @@ def hess_cuda(inp: torch.Tensor, grid: torch.Tensor,
     return out
 
 
+# site tile of the push: 8^3 sites, a 19^3 patch (27 KB) at cubic order and
+# max_disp=4
+PUSH_TILE = 8
+
+
 def push_cuda(inp: torch.Tensor, grid: torch.Tensor,
               orders: Sequence[int], bounds: Sequence[int],
               extrapolate: int, max_disp, deriv: bool = False
@@ -232,21 +241,29 @@ def push_cuda(inp: torch.Tensor, grid: torch.Tensor,
     Plain: values inp (B, C, *ishape) at the sites of grid (B, *ishape,
     D) -> volume (B, C, *ishape).  ``deriv`` (pushgrad, the adjoint of
     the gradient): inp (B, C, *ishape, D) -> (B, C, *ishape).  Same
-    semantics as ``window._push_impl_torch`` / ``_pushgrad_impl_torch``,
-    but the float32 sums are atomic adds, so their order (and the last
-    bits of the result) varies from run to run.
+    semantics as ``window._push_impl_torch`` / ``_pushgrad_impl_torch``;
+    race-free, so two runs give the same bits.  Takes a scratch buffer of
+    the site tiles' patches (C x B x tiles x patch floats).
     """
     name = "push_cuda"
     setup = _launch_setup(name, inp, grid, orders, bounds, extrapolate,
                           max_disp, deriv)
     B, C = inp.shape[:2]
     ishape = tuple(grid.shape[1:-1])
-    out = torch.zeros((B, C) + ishape, dtype=inp.dtype, device=inp.device)
+    out = inp.new_empty((B, C) + ishape)
     if setup is None:
-        return out
+        return out.zero_()
     inp3, grid3, p, _ = setup
-    _call("push", inp3, inp3.data_ptr(), grid3.data_ptr(), out.data_ptr(),
-          ctypes.byref(p), int(deriv))
+    shape3 = tuple(p.shape)
+    tile = tuple(min(PUSH_TILE, n) for n in shape3)
+    lo = tuple(p.d0min)
+    extent = tuple(t + p.d0max[d] + p.order[d] - p.d0min[d]
+                   for d, t in enumerate(tile))
+    geom, scratch, tables = patch_geom(B, C, shape3, tuple(p.bound), tile,
+                                       lo, extent, inp.device)
+    _call("push", inp3, inp3.data_ptr(), grid3.data_ptr(),
+          scratch.data_ptr(), out.data_ptr(), ctypes.byref(p),
+          ctypes.byref(geom), int(deriv))
     _count("pushgrad" if deriv else "push")
     return out
 

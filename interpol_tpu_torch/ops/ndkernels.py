@@ -1,16 +1,20 @@
-"""Generic N-D B-spline sampling as a plain gather over the (order+1)^D taps.
+"""Generic N-D B-spline sampling as a plain gather / scatter over the
+(order+1)^D taps.
 
-PyTorch port of the pull and gradient cores of
-``interpol_tpu/ops/ndkernels.py`` (``inbounds_mask`` ``:79-90``,
-``pull_core`` ``:221-249``, ``grad_core`` ``:294-324``).  This is the
-general path that ``grid_pull`` / ``grid_grad`` take when no ``max_disp``
-is declared (the XLA tier of the JAX package); it runs as plain torch on
-every device.
+PyTorch port of ``interpol_tpu/ops/ndkernels.py`` (``inbounds_mask``
+``:79-90``, ``pull_core`` ``:221-249``, ``push_core`` ``:252-280``,
+``count_core`` ``:283-291``, ``grad_core`` ``:294-324``,
+``pushgrad_core`` ``:327-358``, ``hess_core`` ``:361-401``), plus
+``pushhess_core``, the adjoint of ``hess_core`` in the image.  These are
+the plain versions of the scattered kernels (``csrc/gather.cu``,
+``csrc/splat.cu``), the path of every D > 3 cloud on every device, and
+the reference the kernels are held to.  The scatters are ``scatter_add_``:
+deterministic on the CPU, atomic (run-to-run order) on the card.
 
 Layout (batch written out where the JAX side vmaps):
-    input  : (B, C, *ishape)
+    input  : (B, C, *ishape)  (pull family) / (B, C, P[, D[, D]]) (push)
     grid   : (B, P, D)       flattened sample positions, voxel units
-    output : (B, C, P) / (B, C, P, D)
+    output : (B, C, P[, D[, D]]) (pull family) / (B, C, *oshape) (push)
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ import torch
 from .bounds import fold_index, fold_sign
 from .splines import bspline_taps, node_origin
 
-__all__ = ["inbounds_mask", "pull_core", "grad_core"]
+__all__ = ["inbounds_mask", "pull_core", "push_core", "count_core",
+           "grad_core", "pushgrad_core", "hess_core", "pushhess_core"]
 
 
 def _compute_dtypes(inp, grid):
@@ -48,34 +53,58 @@ def inbounds_mask(grid: torch.Tensor, ishape: Sequence[int],
     return mask.to(dtype)
 
 
-def _tap_tables(grid, ishape, orders, bounds, need_grad, wdtype):
+def _tap_tables(grid, ishape, orders, bounds, need_grad, wdtype,
+                need_hess=False):
     """Per axis: lists over taps of (folded index, sign or None, weight,
-    derivative or None), each shaped like ``grid[..., 0]``."""
+    derivative or None, second derivative or None), each shaped like
+    ``grid[..., 0]``."""
     tables = []
     for d, (order, bound) in enumerate(zip(orders, bounds)):
         n = ishape[d]
         n0, t = node_origin(grid[..., d].to(wdtype), order)
-        w, gr, _ = bspline_taps(t, order, grad=need_grad)
+        w, gr, he = bspline_taps(t, order, grad=need_grad, hess=need_hess)
         axis = []
         for j in range(order + 1):
             node = n0 + j
             axis.append((fold_index(node, n, bound),
                          fold_sign(node, n, bound, wdtype), w[j],
-                         gr[j] if need_grad else None))
+                         gr[j] if need_grad else None,
+                         he[j] if need_hess else None))
         tables.append(axis)
     return tables
 
 
-def _gather_taps(inp, grid, orders, bounds, need_grad):
+def _weight(taps, deriv=(), deriv2=None):
+    """Separable product of one node's taps: the first-derivative factor
+    on the axes in ``deriv``, the second-derivative one on ``deriv2``."""
+    return math.prod(t[4] if d == deriv2 else (t[3] if d in deriv else t[2])
+                     for d, t in enumerate(taps))
+
+
+def _hess_weights(taps, D):
+    """{(d, d2): weight} over the upper triangle of the Hessian."""
+    return {(d, d2): _weight(taps, deriv2=d) if d == d2
+            else _weight(taps, deriv=(d, d2))
+            for d in range(D) for d2 in range(d, D)}
+
+
+def _sign(taps):
+    """Product of the taps' fold signs, or None when all are +1."""
+    signs = [t[1] for t in taps if t[1] is not None]
+    return math.prod(signs) if signs else None
+
+
+def _gather_taps(inp, grid, orders, bounds, need_grad, need_hess=False):
     """Yield (gathered values (B, C, P), per-axis tap tuples) for every
-    node of the tap product, plus the compute dtype."""
+    node of the tap product."""
     D = grid.shape[-1]
     B, C = inp.shape[:2]
     ishape = tuple(inp.shape[2:])
     _, wdtype = _compute_dtypes(inp, grid)
     flat = inp.reshape(B, C, math.prod(ishape)).to(wdtype)
     strides = [math.prod(ishape[d + 1:]) for d in range(D)]
-    tables = _tap_tables(grid, ishape, orders, bounds, need_grad, wdtype)
+    tables = _tap_tables(grid, ishape, orders, bounds, need_grad, wdtype,
+                         need_hess)
     P = grid.shape[1]
     for taps in itertools.product(*tables):
         lin = sum(t[0] * s for t, s in zip(taps, strides))
@@ -84,6 +113,28 @@ def _gather_taps(inp, grid, orders, bounds, need_grad):
             if t[1] is not None:
                 val = val * t[1][:, None]
         yield val, taps
+
+
+def _scatter_taps(term_of, grid, oshape, orders, bounds, need_grad,
+                  need_hess, C, wdtype):
+    """Adjoint of :func:`_gather_taps`: for every node of the tap
+    product, scatter-add ``term_of(taps)`` (B, C, P) times the fold sign
+    at the node's folded index.  Returns (B, C, *oshape)."""
+    D = grid.shape[-1]
+    B, P = grid.shape[:2]
+    V = math.prod(oshape)
+    strides = [math.prod(oshape[d + 1:]) for d in range(D)]
+    tables = _tap_tables(grid, oshape, orders, bounds, need_grad, wdtype,
+                         need_hess)
+    out = torch.zeros((B, C, V), dtype=wdtype, device=grid.device)
+    for taps in itertools.product(*tables):
+        lin = sum(t[0] * s for t, s in zip(taps, strides))
+        term = term_of(taps)
+        sign = _sign(taps)
+        if sign is not None:
+            term = term * sign[:, None]
+        out.scatter_add_(2, lin[:, None, :].expand(B, C, P), term)
+    return out.reshape((B, C) + tuple(oshape))
 
 
 def pull_core(inp: torch.Tensor, grid: torch.Tensor,
@@ -112,12 +163,102 @@ def grad_core(inp: torch.Tensor, grid: torch.Tensor,
     out_dtype, wdtype = _compute_dtypes(inp, grid)
     out = None
     for val, taps in _gather_taps(inp, grid, orders, bounds, True):
-        terms = [val * math.prod(t[3] if d == da else t[2]
-                                 for d, t in enumerate(taps))[:, None]
+        terms = [val * _weight(taps, deriv=(da,))[:, None]
                  for da in range(D)]
         term = torch.stack(terms, dim=-1)
         out = term if out is None else out + term
     mask = inbounds_mask(grid, inp.shape[-D:], extrapolate, wdtype)
     if mask is not None:
         out = out * mask[:, None, :, None]
+    return out.to(out_dtype)
+
+
+def _masked(vals, grid, oshape, extrapolate, wdtype, trailing=0):
+    """``vals`` (B, C, P, ...) in the compute dtype, zeroed where the
+    sample is masked."""
+    vals = vals.to(wdtype)
+    mask = inbounds_mask(grid, oshape, extrapolate, wdtype)
+    if mask is None:
+        return vals
+    return vals * mask.reshape(mask.shape[:1] + (1,) + mask.shape[1:]
+                               + (1,) * trailing)
+
+
+def push_core(inp: torch.Tensor, grid: torch.Tensor,
+              oshape: Tuple[int, ...], orders: Tuple[int, ...],
+              bounds: Tuple[int, ...], extrapolate: int) -> torch.Tensor:
+    """Splat values ``inp`` at ``grid`` (the adjoint of :func:`pull_core`):
+    (B, C, P), (B, P, D) -> (B, C, *oshape)."""
+    out_dtype, wdtype = _compute_dtypes(inp, grid)
+    val0 = _masked(inp, grid, oshape, extrapolate, wdtype)
+    out = _scatter_taps(lambda taps: val0 * _weight(taps)[:, None], grid,
+                        oshape, orders, bounds, False, False, inp.shape[1],
+                        wdtype)
+    return out.to(out_dtype)
+
+
+def count_core(grid: torch.Tensor, oshape: Tuple[int, ...],
+               orders: Tuple[int, ...], bounds: Tuple[int, ...],
+               extrapolate: int) -> torch.Tensor:
+    """Splat unit weights: (B, P, D) -> (B, 1, *oshape)."""
+    ones = grid.new_ones((grid.shape[0], 1, grid.shape[1]))
+    return push_core(ones, grid, oshape, orders, bounds, extrapolate)
+
+
+def pushgrad_core(inp: torch.Tensor, grid: torch.Tensor,
+                  oshape: Tuple[int, ...], orders: Tuple[int, ...],
+                  bounds: Tuple[int, ...], extrapolate: int) -> torch.Tensor:
+    """Adjoint of :func:`grad_core` in the image: (B, C, P, D), (B, P, D)
+    -> (B, C, *oshape)."""
+    D = grid.shape[-1]
+    out_dtype, wdtype = _compute_dtypes(inp, grid)
+    val0 = _masked(inp, grid, oshape, extrapolate, wdtype, trailing=1)
+
+    def term(taps):
+        return sum(val0[..., d] * _weight(taps, deriv=(d,))[:, None]
+                   for d in range(D))
+    out = _scatter_taps(term, grid, oshape, orders, bounds, True, False,
+                        inp.shape[1], wdtype)
+    return out.to(out_dtype)
+
+
+def hess_core(inp: torch.Tensor, grid: torch.Tensor,
+              orders: Tuple[int, ...], bounds: Tuple[int, ...],
+              extrapolate: int) -> torch.Tensor:
+    """Spatial Hessian of the spline surface sampled at ``grid``:
+    (B, C, *ishape), (B, P, D) -> (B, C, P, D, D), symmetric."""
+    D = grid.shape[-1]
+    out_dtype, wdtype = _compute_dtypes(inp, grid)
+    out = None
+    for val, taps in _gather_taps(inp, grid, orders, bounds, True, True):
+        w = _hess_weights(taps, D)
+        rows = [torch.stack([val * w[(min(d, d2), max(d, d2))][:, None]
+                             for d2 in range(D)], dim=-1)
+                for d in range(D)]
+        term = torch.stack(rows, dim=-2)
+        out = term if out is None else out + term
+    mask = inbounds_mask(grid, inp.shape[-D:], extrapolate, wdtype)
+    if mask is not None:
+        out = out * mask[:, None, :, None, None]
+    return out.to(out_dtype)
+
+
+def pushhess_core(inp: torch.Tensor, grid: torch.Tensor,
+                  oshape: Tuple[int, ...], orders: Tuple[int, ...],
+                  bounds: Tuple[int, ...], extrapolate: int) -> torch.Tensor:
+    """Adjoint of :func:`hess_core` in the image: (B, C, P, D, D),
+    (B, P, D) -> (B, C, *oshape).  Both triangles of the cotangent count
+    (the symmetric pairs are summed)."""
+    D = grid.shape[-1]
+    out_dtype, wdtype = _compute_dtypes(inp, grid)
+    val0 = _masked(inp, grid, oshape, extrapolate, wdtype, trailing=2)
+    sym = {(d, d2): val0[..., d, d2] if d == d2
+           else val0[..., d, d2] + val0[..., d2, d]
+           for d in range(D) for d2 in range(d, D)}
+
+    def term(taps):
+        w = _hess_weights(taps, D)
+        return sum(sym[k] * w[k][:, None] for k in sym)
+    out = _scatter_taps(term, grid, oshape, orders, bounds, True, True,
+                        inp.shape[1], wdtype)
     return out.to(out_dtype)

@@ -42,7 +42,6 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from .bounds import fold_index, fold_sign
 from .ndkernels import inbounds_mask
@@ -418,16 +417,16 @@ def _pushgrad(inp, grid, opts):
 # Hand-wired backward rules, mirroring the JAX package's custom VJPs
 # (interpol_tpu/ops/window.py:674-846).  The JAX rules sum over axis 0,
 # the channel axis under vmap; in this batch-first layout that is dim 1.
-# Each Function saves the contiguous grid once (``dense_flow`` returns a
-# non-contiguous one) and computes only the cotangents asked for.  The
-# backward rules run the raw operations: differentiating them a second
-# time raises (``once_differentiable``).
+# Each backward is composed from the Functions themselves, as the JAX rules
+# call the wrapped ops, so a second backward (create_graph=True) re-enters
+# the Functions and the kernels.  The grid is made contiguous once, before
+# the Function (``dense_flow`` returns a non-contiguous one), and saved as
+# it is; only the cotangents asked for are computed.
 
 def _prepare(ctx, inp, grid, opts):
-    inp, grid = inp.detach(), grid.detach().contiguous()
     ctx.opts = opts
     ctx.save_for_backward(inp, grid)
-    return inp, grid
+    return inp.detach(), grid.detach()
 
 
 class PullWindow(torch.autograd.Function):
@@ -439,15 +438,14 @@ class PullWindow(torch.autograd.Function):
         return _pull(*_prepare(ctx, inp, grid, opts), opts)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, ct):
         inp, grid = ctx.saved_tensors
         ct = ct.contiguous()
         d_inp = d_grid = None
         if ctx.needs_input_grad[0]:
-            d_inp = _push(ct, grid, ctx.opts).to(inp.dtype)
+            d_inp = PushWindow.apply(ct, grid, *ctx.opts).to(inp.dtype)
         if ctx.needs_input_grad[1]:
-            g = _grad(inp, grid, ctx.opts)
+            g = GradWindow.apply(inp, grid, *ctx.opts)
             d_grid = (g * ct[..., None]).sum(1).to(grid.dtype)
         return d_inp, d_grid, None, None, None, None
 
@@ -461,15 +459,14 @@ class PushWindow(torch.autograd.Function):
         return _push(*_prepare(ctx, inp, grid, opts), opts)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, ct):
         inp, grid = ctx.saved_tensors
         ct = ct.contiguous()
         d_inp = d_grid = None
         if ctx.needs_input_grad[0]:
-            d_inp = _pull(ct, grid, ctx.opts).to(inp.dtype)
+            d_inp = PullWindow.apply(ct, grid, *ctx.opts).to(inp.dtype)
         if ctx.needs_input_grad[1]:
-            g = _grad(ct, grid, ctx.opts)
+            g = GradWindow.apply(ct, grid, *ctx.opts)
             d_grid = (g * inp[..., None]).sum(1).to(grid.dtype)
         return d_inp, d_grid, None, None, None, None
 
@@ -484,15 +481,14 @@ class GradWindow(torch.autograd.Function):
         return _grad(*_prepare(ctx, inp, grid, opts), opts)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, ct):
         inp, grid = ctx.saved_tensors
         ct = ct.contiguous()
         d_inp = d_grid = None
         if ctx.needs_input_grad[0]:
-            d_inp = _pushgrad(ct, grid, ctx.opts).to(inp.dtype)
+            d_inp = PushgradWindow.apply(ct, grid, *ctx.opts).to(inp.dtype)
         if ctx.needs_input_grad[1]:
-            h = _hess(inp, grid, ctx.opts)
+            h = HessWindow.apply(inp, grid, *ctx.opts)
             d_grid = (h * ct[..., None]).sum((1, -2)).to(grid.dtype)
         return d_inp, d_grid, None, None, None, None
 
@@ -507,33 +503,59 @@ class PushgradWindow(torch.autograd.Function):
         return _pushgrad(*_prepare(ctx, inp, grid, opts), opts)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, ct):
         inp, grid = ctx.saved_tensors
         ct = ct.contiguous()
         d_inp = d_grid = None
         if ctx.needs_input_grad[0]:
-            d_inp = _grad(ct, grid, ctx.opts).to(inp.dtype)
+            d_inp = GradWindow.apply(ct, grid, *ctx.opts).to(inp.dtype)
         if ctx.needs_input_grad[1]:
-            h = _hess(ct, grid, ctx.opts)
+            h = HessWindow.apply(ct, grid, *ctx.opts)
             d_grid = (h * inp[..., None]).sum((1, -2)).to(grid.dtype)
         return d_inp, d_grid, None, None, None, None
 
 
 class HessWindow(torch.autograd.Function):
-    """hess; no backward yet (the JAX package's third-order rule,
-    window.py:734-744, is not ported)."""
+    """hess; backward: the VJP of the plain ``_hess_impl_torch`` through
+    PyTorch's autograd, on every device (the JAX rule, window.py:734-744).
+    This is third-order territory: the JAX package runs its XLA
+    formulation there too, not a kernel."""
 
     @staticmethod
     def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp):
         opts = (orders, bounds, extrapolate, max_disp)
-        return _hess(inp.detach(), grid.detach().contiguous(), opts)
+        return _hess(*_prepare(ctx, inp, grid, opts), opts)
 
     @staticmethod
     def backward(ctx, ct):
-        raise NotImplementedError(
-            "the backward of hess_window (third order) is not ported yet "
-            "(ROADMAP queue 1, HessWindow backward)")
+        inp, grid = ctx.saved_tensors
+        wanted = [t for t, need in zip((inp, grid), ctx.needs_input_grad)
+                  if need]
+        if not wanted:
+            return None, None, None, None, None, None
+        create = torch.is_grad_enabled()
+        with torch.enable_grad():
+            # differentiable leaves: the saved tensors themselves when a
+            # higher derivative is being built, detached copies otherwise
+            leaves = [t if create else t.detach().requires_grad_()
+                      for t in (inp, grid)]
+            h = _hess_impl_torch(*leaves, *ctx.opts)
+            picked = [l for l, need in zip(leaves, ctx.needs_input_grad)
+                      if need]
+            grads = list(torch.autograd.grad(h, picked, ct.to(h.dtype),
+                                             create_graph=create))
+        d_inp = grads.pop(0).to(inp.dtype) if ctx.needs_input_grad[0] \
+            else None
+        d_grid = grads.pop(0).to(grid.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return d_inp, d_grid, None, None, None, None
+
+
+def _apply(fn, inp, grid, orders, bounds, extrapolate, max_disp):
+    """Run a window Function on the contiguous grid (one copy when the
+    caller's grid is not contiguous, differentiable)."""
+    return fn.apply(inp, grid.contiguous(), tuple(orders), tuple(bounds),
+                    extrapolate, max_disp)
 
 
 def pull_window(inp, grid, orders, bounds, extrapolate, max_disp,
@@ -541,39 +563,41 @@ def pull_window(inp, grid, orders, bounds, extrapolate, max_disp,
     """Dense-grid pull: (B, C, *ishape), (B, *ishape, D) -> (B, C, *ishape).
 
     CPU tensors run the plain shift-FMA version; CUDA tensors the CUDA
-    kernel (float32 only).  Differentiable in ``inp`` and ``grid``.
+    kernel (float32 only).  Differentiable in ``inp`` and ``grid``, to any
+    order.
     ``spread`` is ignored (full window)."""
-    return PullWindow.apply(inp, grid, tuple(orders), tuple(bounds),
-                            extrapolate, max_disp)
+    return _apply(PullWindow, inp, grid, orders, bounds, extrapolate,
+                  max_disp)
 
 
 def push_window(inp, grid, orders, bounds, extrapolate, max_disp,
                 spread=None):
     """Dense-grid splat, the exact adjoint of :func:`pull_window`:
     (B, C, *ishape), (B, *ishape, D) -> (B, C, *ishape)."""
-    return PushWindow.apply(inp, grid, tuple(orders), tuple(bounds),
-                            extrapolate, max_disp)
+    return _apply(PushWindow, inp, grid, orders, bounds, extrapolate,
+                  max_disp)
 
 
 def grad_window(inp, grid, orders, bounds, extrapolate, max_disp,
                 spread=None):
     """Dense-grid spatial gradients of the spline surface:
     (B, C, *ishape), (B, *ishape, D) -> (B, C, *ishape, D)."""
-    return GradWindow.apply(inp, grid, tuple(orders), tuple(bounds),
-                            extrapolate, max_disp)
+    return _apply(GradWindow, inp, grid, orders, bounds, extrapolate,
+                  max_disp)
 
 
 def pushgrad_window(inp, grid, orders, bounds, extrapolate, max_disp,
                     spread=None):
     """Adjoint of :func:`grad_window`: (B, C, *ishape, D) cotangents ->
     (B, C, *ishape)."""
-    return PushgradWindow.apply(inp, grid, tuple(orders), tuple(bounds),
-                                extrapolate, max_disp)
+    return _apply(PushgradWindow, inp, grid, orders, bounds, extrapolate,
+                  max_disp)
 
 
 def hess_window(inp, grid, orders, bounds, extrapolate, max_disp,
                 spread=None):
     """Spatial Hessian of the spline surface: (B, C, *ishape) ->
-    (B, C, *ishape, D, D), symmetric.  Not differentiable yet."""
-    return HessWindow.apply(inp, grid, tuple(orders), tuple(bounds),
-                            extrapolate, max_disp)
+    (B, C, *ishape, D, D), symmetric.  Differentiable (third order, through
+    the plain version)."""
+    return _apply(HessWindow, inp, grid, orders, bounds, extrapolate,
+                  max_disp)

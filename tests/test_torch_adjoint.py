@@ -3,9 +3,9 @@ JAX package, float64 on the CPU at ``atol=1e-10 * max(1, max|ref|)``.
 
 The plain push, pushgrad and hess are held to ``_push_impl``,
 ``_pushgrad_xla`` and ``_hess_xla``; each autograd Function's backward to
-``jax.vjp`` of the JAX window op; ``grid_push`` / ``grid_count`` to the JAX
-API.  The CUDA kernels are held to these plain versions in
-``test_torch_cuda.py``."""
+``jax.vjp`` of the JAX window op, and second derivatives to ``jax.grad``;
+``grid_push`` / ``grid_count`` to the JAX API.  The CUDA kernels are held
+to these plain versions in ``test_torch_cuda.py``."""
 import numpy as np
 import pytest
 import torch
@@ -143,18 +143,37 @@ def test_gradcheck_pull_push():
                                         (inp, grid), fast_mode=True)
 
 
-def test_second_order_raises():
+def test_second_order_matches_jax():
+    # d/d(inp, grid) of sum(d_grid), d_grid the grid gradient of
+    # sum(pull**2) built with create_graph=True; and hess_window's backward
     orders, bounds, ex, ish, md = VJP_CASE
-    inp, grid = warp_case(ish, disp=md)
+    inp, grid = warp_case(ish, disp=md, B=2, seed=7)
+    ct = np.random.default_rng(8).standard_normal(
+        inp.shape + (len(ish),) * 2)
+
+    def jvm(fn):
+        return jax.vmap(lambda a, g: fn(a, g, orders, bounds, ex, md))
+
+    def dgrid_sum(a, g):
+        return jnp.sum(jax.grad(
+            lambda g2: jnp.sum(jvm(jw.pull_window)(a, g2) ** 2))(g))
+    ref_di, ref_dg = jax.grad(dgrid_sum, argnums=(0, 1))(
+        jnp.asarray(inp), jnp.asarray(grid))
+    _, vjp = jax.vjp(jvm(jw.hess_window), jnp.asarray(inp),
+                     jnp.asarray(grid))
+    ref_hi, ref_hg = vjp(jnp.asarray(ct))
+
     ti = torch.tensor(inp, requires_grad=True)
     tg = torch.tensor(grid, requires_grad=True)
     out = tw.pull_window(ti, tg, orders, bounds, ex, md)
     (dg,) = torch.autograd.grad(out.square().sum(), [tg], create_graph=True)
-    with pytest.raises(RuntimeError, match="differentiate twice"):
-        dg.sum().backward()
+    di2, dg2 = torch.autograd.grad(dg.sum(), [ti, tg])
+    assert_close(di2, ref_di)
+    assert_close(dg2, ref_dg)
     h = tw.hess_window(ti, tg, orders, bounds, ex, md)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        h.sum().backward()
+    hi, hg = torch.autograd.grad(h, [ti, tg], torch.as_tensor(ct))
+    assert_close(hi, ref_hi)
+    assert_close(hg, ref_hg)
 
 
 def test_grid_push_count_match_jax():
@@ -173,10 +192,16 @@ def test_grid_push_count_match_jax():
     assert_close(itt.grid_count(torch.as_tensor(grid), **kw),
                  itp.grid_count(jnp.asarray(grid), **kw))
     assert itt.push is itt.grid_push and itt.count is itt.grid_count
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        itt.grid_push(torch.as_tensor(img), torch.as_tensor(grid))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        itt.grid_count(torch.as_tensor(grid), shape=(4, 4, 4), max_disp=1.0)
+    # without max_disp, or onto another shape: the generic path
+    del kw["max_disp"]
+    assert_close(
+        itt.grid_push(torch.as_tensor(img), torch.as_tensor(grid), **kw),
+        itp.grid_push(jnp.asarray(img), jnp.asarray(grid), **kw))
+    assert_close(
+        itt.grid_count(torch.as_tensor(grid), shape=(4, 4, 4), max_disp=1.0,
+                       **kw),
+        itp.grid_count(jnp.asarray(grid), shape=(4, 4, 4), max_disp=1.0,
+                       **kw))
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

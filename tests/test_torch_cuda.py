@@ -1,6 +1,8 @@
-"""The dense-warp CUDA kernels against their plain PyTorch versions, on the
-card: pull value / grad / hess (``csrc/warp.cu``), push and pushgrad
-(``csrc/push.cu``), the autograd Functions and the train steps on them.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+dense warp's pull value / grad / hess (``csrc/warp.cu``), push and pushgrad
+(``csrc/push.cu``), the scattered gather (``csrc/gather.cu``) and splat
+(``csrc/splat.cu``), the autograd Functions (second order included) and
+the train steps on them.
 
 Every test here is marked ``cuda`` and skips where there is no NVIDIA GPU
 (the kernels have no CPU mode).  The file imports no JAX, so it also runs on
@@ -13,14 +15,16 @@ import pytest
 import torch
 
 from interpol_tpu_torch import (SVFModel, WarpModel, grid_grad, grid_pull,
-                                svf_mse_loss)
-from interpol_tpu_torch.ops import cuda_warp
+                                grid_push, svf_mse_loss)
+from interpol_tpu_torch.ops import cuda_scattered, cuda_warp
+from interpol_tpu_torch.ops import ndkernels as nd
+from interpol_tpu_torch.ops import pushpull as tpp
 from interpol_tpu_torch.ops import window as tw
 
 pytestmark = pytest.mark.cuda
 
-# float32 sums of at most 512 non-zero taps taken in another order (for
-# push, in an order that varies from run to run: compare with a tolerance)
+# float32 sums of at most 512 non-zero taps taken in another order than the
+# plain version's (every kernel sums in a fixed order: two runs are equal)
 REL_TOL = 1e-5
 # a whole train step, card vs CPU: sums of many such terms
 STEP_TOL = 1e-4
@@ -182,4 +186,139 @@ def test_wrapper_refuses(cuda_device):
     with pytest.raises(RuntimeError, match="requires grad"):
         cuda_warp.warp_cuda(inp.clone().requires_grad_(), grid, *opts)
     out = tw.pull_window(inp.clone().requires_grad_(), grid, *opts)
+    assert out.requires_grad
+
+
+# scattered clouds: orders, bounds, extrapolate, ishape, points
+SC_CASES = [
+    ((3, 3, 3), (3, 3, 3), 1, (21, 22, 23), 5000),
+    ((3, 2, 1), (3, 0, 6), 1, (9, 10, 11), 300),
+    ((0, 5, 3), (4, 6, 0), 2, (8, 9, 10), 300),
+    ((7, 7, 7), (1, 2, 5), 0, (7, 8, 9), 150),
+    ((1, 3), (4, 3), 0, (12, 10), 200),                     # 2-D
+    ((2,), (6,), 2, (15,), 60),                             # 1-D
+]
+
+
+def sc_case(device, ish, P, B=2, C=2, seed=0):
+    """Volume and a cloud uniform over [-2.5, n + 1.5]: outliers on each
+    side of every axis."""
+    rng = np.random.default_rng(seed)
+    kw = dict(dtype=torch.float32, device=device)
+    inp = torch.as_tensor(rng.standard_normal((B, C) + tuple(ish)), **kw)
+    g = -2.5 + (np.asarray(ish) + 4.0) * rng.uniform(size=(B, P, len(ish)))
+    return inp, torch.as_tensor(g, **kw)
+
+
+@pytest.mark.parametrize("orders,bounds,ex,ish,P", SC_CASES)
+def test_scattered_kernels_match_plain(cuda_device, orders, bounds, ex, ish,
+                                       P):
+    inp, grid = sc_case(cuda_device, ish, P)
+    D = len(ish)
+    opts = (orders, bounds, ex)
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    vals = [torch.randn((2, 2, P) + (D,) * k, device=cuda_device,
+                        generator=gen) for k in range(3)]
+    before = dict(cuda_scattered.LAUNCHES_BY_MODE)
+    v, g, _ = cuda_scattered.gather_cuda(inp, grid, *opts, value=True,
+                                         grad=True)
+    v1 = cuda_scattered.gather_cuda(inp, grid, *opts)[0]
+    g1 = cuda_scattered.gather_cuda(inp, grid, *opts, value=False,
+                                    grad=True)[1]
+    _, g2, h = cuda_scattered.gather_cuda(inp, grid, *opts, value=False,
+                                          grad=True, hess=True)
+    h1 = cuda_scattered.gather_cuda(inp, grid, *opts, value=False,
+                                    hess=True)[2]
+    splats = {spec: cuda_scattered.splat_cuda(vals[k], grid, ish, *opts,
+                                              spec=spec)
+              for k, spec in enumerate(("push", "pushgrad", "pushhess"))}
+    for mode in cuda_scattered.LAUNCHES_BY_MODE:
+        assert cuda_scattered.LAUNCHES_BY_MODE[mode] == before[mode] + 1
+    # the fused modes are the single ones, bit for bit
+    assert torch.equal(v, v1) and torch.equal(g, g1) and torch.equal(g, g2)
+    assert torch.equal(h, h1) and torch.equal(h, h.transpose(-1, -2))
+    assert_close(v, nd.pull_core(inp, grid, *opts))
+    assert_close(g, nd.grad_core(inp, grid, *opts))
+    assert_close(h, nd.hess_core(inp, grid, *opts))
+    for k, (spec, core) in enumerate([("push", nd.push_core),
+                                      ("pushgrad", nd.pushgrad_core),
+                                      ("pushhess", nd.pushhess_core)]):
+        assert_close(splats[spec], core(vals[k], grid, ish, *opts))
+        # race-free: a second run gives the same bits
+        again = cuda_scattered.splat_cuda(vals[k], grid, ish, *opts,
+                                          spec=spec)
+        assert torch.equal(again, splats[spec])
+
+
+def test_splat_onto_another_shape(cuda_device):
+    # the API's cloud layout: grid (B, P, 1, 1, 3), values (B, C, P, 1, 1)
+    _, grid = sc_case(cuda_device, (9, 10, 11), 400)
+    vals = torch.randn((2, 1, 400), device=cuda_device)
+    out = grid_push(vals[..., None, None], grid[:, :, None, None],
+                    shape=(13, 7, 12), interpolation=3, bound="dct2",
+                    extrapolate=True)
+    assert_close(out, nd.push_core(vals, grid, (13, 7, 12), (3,) * 3,
+                                   (3,) * 3, 1))
+
+
+def test_push_kernels_are_deterministic(cuda_device):
+    inp, grid = warp_case(cuda_device, (33, 34, 35), C=3, disp=4.0, B=2)
+    opts = ((3, 3, 3), (3, 3, 3), 1, 4.0)
+    ct = torch.randn(inp.shape + (3,), device=cuda_device)
+    for args, kw in [((inp,), {}), ((ct,), dict(deriv=True))]:
+        first = cuda_warp.push_cuda(*args, grid, *opts, **kw)
+        for _ in range(3):
+            assert torch.equal(cuda_warp.push_cuda(*args, grid, *opts, **kw),
+                               first)
+
+
+def _second_order(device, op):
+    """Gradient in (inp, grid) of sum(d_inp) + sum(d_grid), the first
+    derivatives of sum(op**2) built with create_graph=True."""
+    rng = np.random.default_rng(3)
+    ish = (9, 10, 11)
+    kw = dict(dtype=torch.float32, device=device)
+    inp = torch.tensor(rng.standard_normal((2, 2) + ish), requires_grad=True,
+                       **kw)
+    ident = np.stack(np.meshgrid(*[np.arange(n) for n in ish],
+                                 indexing="ij"), -1)
+    dense = torch.tensor(ident + rng.uniform(-1, 1, (2,) + ish + (3,)),
+                         requires_grad=True, **kw)
+    cloud = torch.tensor(rng.uniform(-1.5, 10.5, (2, 40, 3)),
+                         requires_grad=True, **kw)
+    opts = ((3, 2, 1), (3, 0, 6), 2)
+    grid, out = {
+        "pull_window": (dense, lambda: tw.pull_window(inp, dense, *opts,
+                                                      1.0)),
+        "grad_window": (dense, lambda: tw.grad_window(inp, dense, *opts,
+                                                      1.0)),
+        "pull": (cloud, lambda: tpp.pull(inp, cloud, *opts)),
+        "grad": (cloud, lambda: tpp.grad(inp, cloud, *opts)),
+    }[op]
+    di, dg = torch.autograd.grad(out().square().sum(), [inp, grid],
+                                 create_graph=True)
+    return [t.detach().cpu() for t in torch.autograd.grad(
+        di.sum() + dg.sum(), [inp, grid])]
+
+
+@pytest.mark.parametrize("op", ["pull_window", "grad_window", "pull",
+                                "grad"])
+def test_second_order_card_matches_cpu(cuda_device, op):
+    for a, b in zip(_second_order(cuda_device, op),
+                    _second_order("cpu", op)):
+        assert_close(a, b, STEP_TOL)
+
+
+def test_scattered_wrappers_refuse(cuda_device):
+    inp, grid = sc_case(cuda_device, (4, 5, 6), 30)
+    opts = ((3, 3, 3), (3, 3, 3), 1)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_scattered.gather_cuda(inp.double(), grid.double(), *opts)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_scattered.splat_cuda(inp.reshape(2, 2, -1)[..., :30].transpose(
+            0, 1).contiguous().transpose(0, 1), grid, (4, 5, 6), *opts)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        cuda_scattered.gather_cuda(inp.clone().requires_grad_(), grid,
+                                   *opts)
+    out = tpp.pull(inp.clone().requires_grad_(), grid, *opts)
     assert out.requires_grad
