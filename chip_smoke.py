@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's dense-warp and scattered paths, forward
-and training, on one NVIDIA GPU.
+and training, and the coarse-to-fine pyramid on the adaptive windows, on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -19,6 +20,11 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    plain cores over orders 0-7, the seven bounds, extrapolate 0/1/2,
    D = 1/2/3, points outside the volume, another output shape and a
    dense cloud; fused modes equal to single ones, every splat equal
+   across two runs; then the adaptive modes (``tile_spread``: value_ad,
+   grad_ad, hess_ad, push_ad, pushgrad_ad) against their plain versions
+   on grids that break the declared spread (taps dropped), over orders
+   0/1/3/5, bounds, D = 1/2/3, and the wide windows (``max_disp=8`` in one
+   launch, an adaptive residual of span 13); the adaptive splats equal
    across two runs;
 4. the training steps at a small size on the card (kernels) against the
    same steps on the CPU (plain versions);
@@ -30,12 +36,21 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    scattered forward (``grid_pull``, ``grid_grad``, ``grid_push``,
    ``grid_count`` of 1M points in 256^3, cubic dct2), P6 its gradients
    (and P6b a second order), P7 an affine reslice of 256^3 and the
-   gradient of its MSE in volume and matrix; the kernels' outputs in each
-   path held to the plain versions on the same inputs;
+   gradient of its MSE in volume and matrix; P8 ``train_step`` x3 of the
+   P2 model with ``tile_spread="auto"``, P9 ``register`` of a
+   ``PyramidModel`` (256^3, coarse 8^3, 3 levels 64^3 / 128^3 / 256^3,
+   cubic, dct2, ``max_disp=4``, 20 steps per level, ``tile_spread="auto"``)
+   on a synthetic pair, P10 the gradients in moving image and control
+   points of P8's MSE and those of ``sum(grid_grad(..., tile_spread=)**2)``
+   in volume and grid; the kernels' outputs in each path held to the plain
+   versions on the same inputs;
 6. times and peak memory beside the card's name and power limit, push and
    every splat equal across runs, ``grid_sample`` as the library yardstick
-   at order 1; the device busy time, idle share and heaviest kernels of
-   the two train steps (torch.profiler).
+   at order 1; each adaptive mode beside its full-window mode on P8's flow
+   at 256^3 (``max_disp=4``, and value / push at ``max_disp=8``), held to
+   its plain version and to the full window; the device busy time, idle
+   share and heaviest kernels of the two train steps and of one 256^3
+   pyramid level (torch.profiler).
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -47,16 +62,21 @@ import math
 import statistics
 import subprocess
 import time
+from functools import partial
 
 import numpy as np
 import torch
 
-from interpol_tpu_torch import (SVFModel, WarpModel, affine_grid, grid_count,
-                                grid_grad, grid_pull, grid_push,
-                                jacobian_det, svf_mse_loss, svf_train_step,
+from interpol_tpu_torch import (PyramidModel, SVFModel, WarpModel,
+                                affine_grid, grid_count, grid_grad,
+                                grid_pull, grid_push, jacobian_det, mse_loss,
+                                register, required_tile_spread, resize,
+                                restrict, svf_mse_loss, svf_train_step,
                                 train_step)
+from interpol_tpu_torch.models import pyramid
 from interpol_tpu_torch.ops import (_build, cuda_scattered, cuda_warp,
                                     ndkernels, pushpull, window)
+from interpol_tpu_torch.ops.tiles import default_tile
 from interpol_tpu_torch.ops.window import (
     _grad_impl_torch, _hess_impl_torch, _pull_impl_torch, _push_impl_torch,
     _pushgrad_impl_torch)
@@ -71,8 +91,9 @@ MAIN_VOL, MAIN_COARSE = (256, 256, 256), (8, 8, 8)
 # one H100 SXM at its 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 MODES = ("value", "grad", "hess", "push", "pushgrad")
+AD_MODES = tuple(f"{m}_ad" for m in MODES)     # adaptive (tile_spread)
 SC_MODES = tuple(cuda_scattered.LAUNCHES_BY_MODE)
-ALL_MODES = MODES + SC_MODES
+ALL_MODES = MODES + AD_MODES + SC_MODES
 # the scattered paths: 1M points into 256^3 (scripts/bench_suite.py:183)
 SC_N, SC_P = 256, 1_000_000
 SC_OPTS = ((3, 3, 3), (3, 3, 3), 1)
@@ -128,14 +149,32 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def peak_mib(fn) -> float:
-    """Device memory ``fn`` allocates at its peak beyond what was live."""
+def timed_once(fn):
+    """(fn(), its time in ms by CUDA events): one run, for the plain
+    versions that take seconds."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def with_peak(fn):
+    """(fn(), the device memory in MiB that fn allocated at its peak
+    beyond what was live)."""
     torch.cuda.synchronize()
     live = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return (torch.cuda.max_memory_allocated() - live) / 2**20
+    return out, (torch.cuda.max_memory_allocated() - live) / 2**20
+
+
+def peak_mib(fn) -> float:
+    return with_peak(fn)[1]
 
 
 def warp_case(B, C, ishape, disp, seed, break_contract=0.0):
@@ -172,9 +211,12 @@ class Drive:
         out = fn()
         torch.cuda.synchronize()
         by_mode = cuda_warp.LAUNCHES_BY_MODE
-        both = by_mode["value+grad"]
-        counts = {m: by_mode[m] + (both if m in ("value", "grad") else 0)
-                  for m in MODES}
+        counts = {}
+        for sfx in ("", "_ad"):
+            both = by_mode["value+grad" + sfx]
+            counts.update({m + sfx: by_mode[m + sfx]
+                           + (both if m in ("value", "grad") else 0)
+                           for m in MODES})
         counts.update(cuda_scattered.LAUNCHES_BY_MODE)
         log(f"{name}: launches " + str({m: c for m, c in counts.items()
                                         if c}))
@@ -220,10 +262,10 @@ class Spy:
             if name not in self.calls:
                 raise AssertionError(f"{tag}: {name} never ran")
             inp, grid, opts, out = self.calls[name]
-            e = hold(errs, MODE_OF[name], tag, out,
-                     PLAIN[name](inp, grid, *opts))
-            log(f"{tag}: {MODE_OF[name]} kernel {tuple(out.shape)} vs "
-                f"plain on the same inputs: err {e:.3g}")
+            mode = MODE_OF[name] + ("_ad" if opts[4] is not None else "")
+            e = hold(errs, mode, tag, out, PLAIN[name](inp, grid, *opts))
+            log(f"{tag}: {mode} kernel {tuple(out.shape)} vs plain on the "
+                f"same inputs: err {e:.3g}")
         self.calls.clear()
 
 
@@ -248,36 +290,46 @@ def phase_build() -> None:
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
 
 
+def check_modes(errs, tag, inp, grid, orders, bounds, ex, md, sp=None):
+    """Every dense mode (``sp``: adaptive) against its plain version on
+    the card; fused = single; hess symmetric; in adaptive mode the splats
+    equal across two runs.  Returns (value, {mode: err})."""
+    opts = (orders, bounds, ex, md, sp)
+    sfx = "" if sp is None else "_ad"
+    val, grad = cuda_warp.warp_cuda(inp, grid, *opts, value=True, grad=True)
+    v1, _ = cuda_warp.warp_cuda(inp, grid, *opts, value=True, grad=False)
+    _, g1 = cuda_warp.warp_cuda(inp, grid, *opts, value=False, grad=True)
+    hess = cuda_warp.hess_cuda(inp, grid, *opts)
+    ct = cotangent(tuple(grad.shape), 11)
+    push = cuda_warp.push_cuda(inp, grid, *opts)
+    pushgrad = cuda_warp.push_cuda(ct, grid, *opts, deriv=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(val, v1) and torch.equal(grad, g1)):
+        raise AssertionError(f"{tag}: fused and single modes differ")
+    if not torch.equal(hess, hess.transpose(-1, -2)):
+        raise AssertionError(f"{tag}: hess is not symmetric")
+    if sp is not None and not (
+            torch.equal(cuda_warp.push_cuda(inp, grid, *opts), push)
+            and torch.equal(cuda_warp.push_cuda(ct, grid, *opts,
+                                                deriv=True), pushgrad)):
+        raise AssertionError(f"{tag}: an adaptive splat differs between "
+                             f"runs")
+    return val, {
+        "value": hold(errs, "value" + sfx, tag, val,
+                      _pull_impl_torch(inp, grid, *opts)),
+        "grad": hold(errs, "grad" + sfx, tag, grad,
+                     _grad_impl_torch(inp, grid, *opts)),
+        "hess": hold(errs, "hess" + sfx, tag, hess,
+                     _hess_impl_torch(inp, grid, *opts)),
+        "push": hold(errs, "push" + sfx, tag, push,
+                     _push_impl_torch(inp, grid, *opts)),
+        "pushgrad": hold(errs, "pushgrad" + sfx, tag, pushgrad,
+                         _pushgrad_impl_torch(ct, grid, *opts))}
+
+
 def phase_kernels(errs) -> None:
     """Kernel vs plain on the card, every mode and template case."""
-    def check(tag, inp, grid, orders, bounds, ex, md):
-        opts = (orders, bounds, ex, md)
-        val, grad = cuda_warp.warp_cuda(inp, grid, *opts, value=True,
-                                        grad=True)
-        v1, _ = cuda_warp.warp_cuda(inp, grid, *opts, value=True,
-                                    grad=False)
-        _, g1 = cuda_warp.warp_cuda(inp, grid, *opts, value=False,
-                                    grad=True)
-        hess = cuda_warp.hess_cuda(inp, grid, *opts)
-        ct = cotangent(tuple(grad.shape), 11)
-        push = cuda_warp.push_cuda(inp, grid, *opts)
-        pushgrad = cuda_warp.push_cuda(ct, grid, *opts, deriv=True)
-        torch.cuda.synchronize()
-        if not (torch.equal(val, v1) and torch.equal(grad, g1)):
-            raise AssertionError(f"{tag}: fused and single modes differ")
-        if not torch.equal(hess, hess.transpose(-1, -2)):
-            raise AssertionError(f"{tag}: hess is not symmetric")
-        return val, {
-            "value": hold(errs, "value", tag, val,
-                          _pull_impl_torch(inp, grid, *opts)),
-            "grad": hold(errs, "grad", tag, grad,
-                         _grad_impl_torch(inp, grid, *opts)),
-            "hess": hold(errs, "hess", tag, hess,
-                         _hess_impl_torch(inp, grid, *opts)),
-            "push": hold(errs, "push", tag, push,
-                         _push_impl_torch(inp, grid, *opts)),
-            "pushgrad": hold(errs, "pushgrad", tag, pushgrad,
-                             _pushgrad_impl_torch(ct, grid, *opts))}
+    check = partial(check_modes, errs)
 
     def fmt(e):
         return ", ".join(f"{m} {e[m]:.3g}" for m in MODES)
@@ -538,25 +590,31 @@ def bound(nbytes, ops):
     return (ms_b, "bytes") if ms_b >= ms_o else (ms_o, "operations")
 
 
+def dense_work(n, bases=0):
+    """(least bytes, float32 operations) of each dense mode at cubic order
+    over n voxels, C=1: inputs read once, outputs written once, FMAs as 2;
+    ``bases``: the int32 tile bases an adaptive launch reads besides."""
+    T = 4  # taps per axis at cubic order
+    extra = 4 * bases
+    return {
+        "value": (4 * (n + 3 * n + n) + extra, 2 * n * (T**3 + T**2 + T)),
+        "grad": (4 * (n + 3 * n + 3 * n) + extra,
+                 2 * n * (2 * T**3 + 3 * T**2 + 3 * T)),
+        "hess": (4 * (n + 3 * n + 9 * n) + extra,
+                 2 * n * (3 * T**3 + 6 * T**2 + 6 * T)),
+        "push": (4 * (n + 3 * n + n) + extra, n * (2 * T**3 + T**2)),
+        "pushgrad": (4 * (3 * n + 3 * n + n) + extra,
+                     n * (4 * T**3 + 4 * T**2)),
+    }
+
+
 def phase_times(card, errs, main, train) -> dict:
     """256^3 cubic dct2 max_disp 4, C=1: each kernel and its plain
     version, the two train steps; median CUDA-event times and peak
     memory beside the card's name and power limit."""
     moving, flow, opts = main["moving"], main["flow"], main["opts"]
     ct = cotangent((1, 1) + MAIN_VOL + (3,), 15)
-    n = moving.numel()
-    T = 4  # taps per axis at cubic order
-    # (bytes moved at least: inputs read once, outputs written once;
-    #  float32 operations: FMAs as 2)
-    work = {
-        "value": (4 * (n + 3 * n + n), 2 * n * (T**3 + T**2 + T)),
-        "grad": (4 * (n + 3 * n + 3 * n),
-                 2 * n * (2 * T**3 + 3 * T**2 + 3 * T)),
-        "hess": (4 * (n + 3 * n + 9 * n),
-                 2 * n * (3 * T**3 + 6 * T**2 + 6 * T)),
-        "push": (4 * (n + 3 * n + n), n * (2 * T**3 + T**2)),
-        "pushgrad": (4 * (3 * n + 3 * n + n), n * (4 * T**3 + 4 * T**2)),
-    }
+    work = dense_work(moving.numel())
     runs = {
         "value": (lambda: cuda_warp.warp_cuda(moving, flow, *opts,
                                               value=True, grad=False)[0],
@@ -575,17 +633,17 @@ def phase_times(card, errs, main, train) -> dict:
     times = {}
     with torch.no_grad():
         for mode, (kern, plain) in runs.items():
-            k_out, p_out = kern(), plain()
+            k_out = kern()
+            (p_out, p_ms), p_mib = with_peak(lambda: timed_once(plain))
             hold(errs, mode, f"256^3 {mode}", k_out, p_out)
             del k_out, p_out
-            k_ms, p_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
-            k_mib, p_mib = peak_mib(kern), peak_mib(plain)
+            k_ms, k_mib = cuda_ms(kern, 20), peak_mib(kern)
             b_ms, b_by = bound(*work[mode])
             times[mode] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                bound_by=b_by)
             log(f"time {mode} {MAIN_VOL} C=1 cubic dct2 max_disp 4: kernel "
                 f"{k_ms:.3f} ms (median of 20, peak +{k_mib:.0f} MiB), "
-                f"plain {p_ms:.3f} ms (median of 3, peak +{p_mib:.0f} "
+                f"plain {p_ms:.3f} ms (one run, peak +{p_mib:.0f} "
                 f"MiB), bound {b_ms:.3f} ms ({b_by}: "
                 f"{work[mode][0] / 1e6:.1f} MB, "
                 f"{work[mode][1] / 1e9:.2f} GFLOP) [{card}]")
@@ -953,21 +1011,21 @@ def phase_sc_times(card, errs, sc) -> dict:
                                                    opts, m)
                 plain = lambda m=mode: SPLAT[m][0](cts[m], pts, (N,) * 3,
                                                    *opts)
-            k_out, p_out = kern(), plain()
+            k_out = kern()
+            (p_out, p_ms), p_mib = with_peak(lambda: timed_once(plain))
             for k, r in zip(k_out if mode in GATHER else [k_out],
                             p_out if mode in GATHER else [p_out]):
                 hold(errs, mode, f"{P} points {mode}", k, r)
             if mode in SPLAT and not torch.equal(kern(), k_out):
                 raise AssertionError(f"{mode} differs between runs")
             del k_out, p_out
-            k_ms, p_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
-            k_mib, p_mib = peak_mib(kern), peak_mib(plain)
+            k_ms, k_mib = cuda_ms(kern, 20), peak_mib(kern)
             b_ms, b_by = bound(*work[mode])
             times[mode] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                bound_by=b_by)
             log(f"time {mode} {P} points in {N}^3 C=1 cubic dct2 "
                 f"extrapolate: kernel {k_ms:.3f} ms (median of 20, peak "
-                f"+{k_mib:.0f} MiB), plain {p_ms:.3f} ms (median of 3, "
+                f"+{k_mib:.0f} MiB), plain {p_ms:.3f} ms (one run, "
                 f"peak +{p_mib:.0f} MiB), bound {b_ms:.4f} ms ({b_by}: "
                 f"{work[mode][0] / 1e6:.1f} MB, "
                 f"{work[mode][1] / 1e9:.2f} GFLOP) [{card}]")
@@ -992,12 +1050,14 @@ def phase_sc_times(card, errs, sc) -> dict:
                 f"({mode})"
             # N(0,1) values at full size: the dense-cloud regime held to
             # the plain version (P7's own cotangents are ~1e-7)
-            e = hold(errs, mode, name, kern(), plain())
-            k_ms, p_ms = cuda_ms(kern, 10), cuda_ms(plain, 3)
+            p_out, p_ms = timed_once(plain)
+            e = hold(errs, mode, name, kern(), p_out)
+            del p_out
+            k_ms = cuda_ms(kern, 10)
             k_mib = peak_mib(kern)
             log(f"time {name} {N}^3 points from {N}^3 cubic dct2: kernel "
                 f"{k_ms:.3f} ms (median of 10, peak +{k_mib:.0f} MiB), "
-                f"plain {p_ms:.3f} ms (median of 3), bound "
+                f"plain {p_ms:.3f} ms (one run), bound "
                 f"{bound(nbytes, 0)[0]:.4f} ms ({nbytes / 1e6:.1f} MB), "
                 f"err vs plain {e:.3g} [{card}]")
     return times
@@ -1072,22 +1132,307 @@ def phase_library(card, main, sc) -> None:
             f"ms (err {e_k:.3g}), median of 10 [{card}]")
 
 
+# ------------------------------------------------------------ adaptive
+def phase_adaptive_kernels(errs) -> None:
+    """The adaptive modes against their plain versions on grids that break
+    the declared spread (taps dropped), over orders, bounds and D; the
+    wide windows in one launch."""
+    check = partial(check_modes, errs)
+
+    def fmt(e):
+        return ", ".join(f"{m} {e[m]:.3g}" for m in MODES)
+
+    # several tiles of both tilings (pull (8, 8, 140), push (8, 8, 128)),
+    # bases that differ between tiles
+    inp, grid = warp_case(2, 2, (20, 17, 140), 2.0, 20)
+    grid[0, :8] += 1.0
+    opts = ((3, 3, 3), (3, 3, 3), 1, 2.0)
+    val, e = check("adaptive, spread-breaking grid", inp, grid, *opts, 0.5)
+    full = cuda_warp.warp_cuda(inp, grid, *opts)[0]
+    dropped = (val - full).abs().max().item()
+    if dropped < 1e-3:
+        raise AssertionError("spread-breaking grid dropped no taps")
+    log(f"adaptive kernel vs plain: (2,2,20,17,140) cubic dct2 max_disp 2, "
+        f"tile_spread 0.5, |disp| <= 2 (breaks it): err {fmt(e)}; the pull "
+        f"differs from the full window by {dropped:.3g} (dropped taps); "
+        f"push_ad, pushgrad_ad two runs torch.equal")
+    worst = {m: 0.0 for m in MODES}
+    n = 0
+    for D, ish in ((3, (12, 13, 20)), (2, (30, 17)), (1, (150,))):
+        for o in (0, 1, 3, 5):
+            for b in (0, 3, 6):
+                ex = (o + b) % 3
+                inp, grid = warp_case(1, 2, ish, 1.5, 100 * D + 10 * o + b)
+                _, e = check(f"adaptive D={D} order {o} bound {b} ex {ex}",
+                             inp, grid, (o,) * D, (b,) * D, ex, 1.5,
+                             (0.5,) * (D - 1) + (1.0,))
+                worst = {m: max(worst[m], e[m]) for m in MODES}
+                n += 1
+    log(f"adaptive kernel vs plain: D = 3/2/1 x orders 0,1,3,5 x bounds "
+        f"0,3,6 ({n} cases, max_disp 1.5, tile_spread 0.5 / last axis 1, "
+        f"|disp| <= 1.5): max err {fmt(worst)}")
+    # the wide windows: the TPU kernels chunk a span over 14 (12 adaptive);
+    # one launch here
+    inp, grid = warp_case(1, 2, (24, 20, 36), 8.0, 21)
+    _, e = check("max_disp 8", inp, grid, (3, 3, 3), (3, 3, 3), 1, 8.0)
+    log(f"kernel vs plain: (1,2,24,20,36) cubic max_disp 8 (window span "
+        f"20, one launch): err {fmt(e)}")
+    _, e = check("adaptive max_disp 8 tile_spread 4.5", inp, grid,
+                 (3, 3, 3), (3, 3, 3), 1, 8.0, 4.5)
+    log(f"adaptive kernel vs plain: (1,2,24,20,36) cubic max_disp 8, "
+        f"tile_spread 4.5 (residual span 13, union 29, one launch): err "
+        f"{fmt(e)}")
+
+
+class LevelTimer:
+    """Time each ``run_level`` that ``register`` makes (host clock around
+    work that ends in a synchronize)."""
+
+    def __enter__(self):
+        self.ms = []
+        self._orig = pyramid.run_level
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        pyramid.run_level = timed
+        return self
+
+    def __exit__(self, *exc):
+        pyramid.run_level = self._orig
+
+
+def phase_adaptive_main(card, errs, drive, train) -> dict:
+    """P8-P10: the adaptive train step, the pyramid, template learning."""
+    moving, fixed = train["moving"], train["fixed"]
+    model = WarpModel(vol_shape=MAIN_VOL, coarse_shape=MAIN_COARSE,
+                      interpolation=3, bound="dct2", max_disp=4.0,
+                      tile_spread="auto", device=DEV)
+    model.load_jax_params(np.full((1,) + MAIN_COARSE + (3,), 0.01))
+    sp = model.auto_tile_spread()
+    losses = drive(
+        f"P8: 3 x train_step, WarpModel{MAIN_VOL} coarse {MAIN_COARSE} "
+        f"cubic dct2 max_disp 4 tile_spread auto {sp}",
+        lambda: [train_step(model, moving, fixed).item() for _ in range(3)],
+        {"value_ad": (3, 3), "grad_ad": (3, 3), "value": (0, 0),
+         "grad": (0, 0), "push_ad": (0, 0)})
+    decreasing("P8 train_step (adaptive)", losses)
+    for name, m in [("P2 train_step (full window)", train["model"]),
+                    ("P8 train_step (adaptive)", model)]:
+        ms = cuda_ms(lambda: train_step(m, moving, fixed), 5)
+        mib = peak_mib(lambda: train_step(m, moving, fixed))
+        log(f"time {name} {MAIN_VOL}: {ms:.3f} ms (median of 5), peak "
+            f"+{mib:.0f} MiB over live tensors [{card}]")
+
+    # P9: the pyramid on a synthetic pair (examples/registration.py:29-39)
+    pm = PyramidModel(vol_shape=MAIN_VOL, coarse_shape=MAIN_COARSE,
+                      levels=3, interpolation=3, bound="dct2", max_disp=4.0,
+                      steps_per_level=20, tile_spread="auto", device=DEV)
+    rng = np.random.default_rng(0)
+    mov = torch.tensor(rng.standard_normal((1, 1) + MAIN_VOL)
+                       .astype(np.float32), device=DEV)
+    mov = resize(restrict(mov, factor=2, interpolation=1),
+                 shape=list(MAIN_VOL), interpolation=3, prefilter=False)
+    true = torch.tensor(rng.uniform(-2, 2, (1,) + MAIN_COARSE + (3,))
+                        .astype(np.float32), device=DEV)
+    finest = pm.finest()
+    with torch.no_grad():
+        fix = finest.warp(mov, true)
+    t0 = time.perf_counter()
+    with LevelTimer() as lt:
+        (params, losses), mib = drive(
+            f"P9: register, PyramidModel{MAIN_VOL} coarse {MAIN_COARSE} 3 "
+            f"levels {pm.level_shapes()} cubic dct2 max_disp 4, 20 steps "
+            f"per level, tile_spread auto, lr 1",
+            lambda: with_peak(lambda: register(pm, mov, fix, lr=1.0)),
+            {"value_ad": (60, 60), "grad_ad": (60, 60), "value": (0, 0),
+             "grad": (0, 0), "push_ad": (0, 0)})
+    wall = (time.perf_counter() - t0) * 1e3
+    losses = losses.cpu().numpy()
+    if losses.shape != (3, 20) or not np.isfinite(losses).all():
+        raise AssertionError(f"P9: losses {losses.shape} not finite")
+    for lev in range(3):
+        tr = losses[lev]
+        if not tr[-1] < tr[0]:
+            raise AssertionError(f"P9 level {lev}: loss did not decrease "
+                                 f"({tr[0]} -> {tr[-1]})")
+        log(f"P9 level {lev} {pm.level_shapes()[lev]} max_disp "
+            f"{pm.level_model(lev).max_disp} tile_spread "
+            f"{pm.level_model(lev)._spread()}: loss {tr[0]:.9g} -> "
+            f"{tr[-1]:.9g} (every step lower: "
+            f"{bool(np.all(np.diff(tr) < 0))}), {lt.ms[lev]:.1f} ms for 20 "
+            f"steps [{card}]")
+    with torch.no_grad():
+        before = mse_loss(finest, mov, fix,
+                          params=pm.init_params(1)).item()
+        after = mse_loss(finest, mov, fix, params=params).item()
+    if not after < before:
+        raise AssertionError(f"P9: final MSE {after} not below the "
+                             f"unregistered {before}")
+    log(f"P9: finest-level MSE unregistered {before:.9g}, registered "
+        f"{after:.9g}; wall {wall:.1f} ms in all (pyramids + 3 levels), "
+        f"peak +{mib:.0f} MiB over live tensors [{card}]")
+
+    # P10: template learning through the adaptive warp, and the grid_grad
+    # second order with tile_spread
+    flow = model.dense_flow().detach().contiguous()
+
+    def p10():
+        mv = moving.clone().requires_grad_()
+        p = model.params.detach().clone().requires_grad_()
+        loss = mse_loss(model, mv, fixed, params=p)
+        d_mv, d_p = torch.autograd.grad(loss, [mv, p])
+        v = moving[0].clone().requires_grad_()
+        g = flow.clone().requires_grad_()
+        loss2 = (grid_grad(v, g, 3, "dct2", True, max_disp=4.0,
+                           tile_spread=sp) ** 2).sum()
+        dv, dg = torch.autograd.grad(loss2, [v, g])
+        return loss.item(), d_mv, d_p, loss2.item(), dv, dg
+    with Spy() as spy:
+        loss, d_mv, d_p, loss2, dv, dg = drive(
+            f"P10: gradient in moving image and control points of P8's MSE, "
+            f"and in volume and grid of sum(grid_grad(v, flow, cubic, dct2, "
+            f"max_disp 4, tile_spread {sp})**2), {MAIN_VOL}", p10,
+            {"value_ad": (1, 1), "push_ad": (1, 1), "grad_ad": (2, 2),
+             "pushgrad_ad": (1, 1), "hess_ad": (1, 1), "value": (0, 0),
+             "push": (0, 0), "pushgrad": (0, 0), "hess": (0, 0)})
+        spy.hold(errs, "P10 backward", ["_push", "_pushgrad"])
+    finite("P10", d_mv, d_p, dv, dg)
+    log(f"P10: MSE {loss:.9g}, |d moving| max {d_mv.abs().max().item():.4g}"
+        f", |d params| max {d_p.abs().max().item():.4g}; grid_grad loss "
+        f"{loss2:.6g}, |d v| max {dv.abs().max().item():.4g}, |d grid| max "
+        f"{dg.abs().max().item():.4g}")
+    return dict(model=model, flow=flow, finest=finest, mov=mov, fix=fix,
+                params=params)
+
+
+def phase_adaptive_times(card, errs, ad, train) -> dict:
+    """Each adaptive mode beside its full-window mode on P8's flow (256^3,
+    cubic, dct2, max_disp 4, C=1): held to its plain version (one run,
+    timed) and to the full-window kernel; kernel times median of 20; then
+    value and push at max_disp 8 (the TPU's chunked window)."""
+    moving, flow = train["moving"], ad["flow"]
+    sp = ad["model"].auto_tile_spread()
+    ct = cotangent((1, 1) + MAIN_VOL + (3,), 16)
+    o3 = ((3, 3, 3), (3, 3, 3), 1)
+
+    def runs(flow, md, sp):
+        opts = o3 + (md, sp)
+        return {
+            "value": (lambda: cuda_warp.warp_cuda(moving, flow, *opts)[0],
+                      lambda: _pull_impl_torch(moving, flow, *opts)),
+            "grad": (lambda: cuda_warp.warp_cuda(moving, flow, *opts,
+                                                 value=False, grad=True)[1],
+                     lambda: _grad_impl_torch(moving, flow, *opts)),
+            "hess": (lambda: cuda_warp.hess_cuda(moving, flow, *opts),
+                     lambda: _hess_impl_torch(moving, flow, *opts)),
+            "push": (lambda: cuda_warp.push_cuda(moving, flow, *opts),
+                     lambda: _push_impl_torch(moving, flow, *opts)),
+            "pushgrad": (lambda: cuda_warp.push_cuda(ct, flow, *opts,
+                                                     deriv=True),
+                         lambda: _pushgrad_impl_torch(ct, flow, *opts))}
+    tile = default_tile(MAIN_VOL)
+    ntiles = math.prod(-(-v // t) for v, t in zip(MAIN_VOL, tile))
+    work = dense_work(moving.numel(), bases=3 * ntiles)
+    times = {}
+    with torch.no_grad():
+        full, adap = runs(flow, 4.0, None), runs(flow, 4.0, sp)
+        for mode in MODES:
+            k_ad, k_full = adap[mode][0](), full[mode][0]()
+            p_out, p_ms = timed_once(adap[mode][1])
+            e = hold(errs, mode + "_ad", f"256^3 {mode}_ad", k_ad, p_out)
+            e_full, t_full = rel_err(k_ad, k_full)
+            if not e_full <= t_full:
+                raise AssertionError(f"256^3 {mode}_ad differs from the "
+                                     f"full window: {e_full:.3g}")
+            del k_ad, k_full, p_out
+            if mode in ("push", "pushgrad"):
+                first = adap[mode][0]()
+                if not torch.equal(adap[mode][0](), first):
+                    raise AssertionError(f"{mode}_ad differs between runs")
+                del first
+            ms_full, ms_ad = cuda_ms(full[mode][0], 20), \
+                cuda_ms(adap[mode][0], 20)
+            mib_full, mib_ad = peak_mib(full[mode][0]), \
+                peak_mib(adap[mode][0])
+            b_ms, b_by = bound(*work[mode])
+            times[mode + "_ad"] = dict(ms=ms_ad, plain_ms=p_ms,
+                                       bound_ms=b_ms, bound_by=b_by)
+            log(f"time {mode}_ad {MAIN_VOL} C=1 cubic dct2 max_disp 4 "
+                f"tile_spread {tuple(round(x, 4) for x in sp)} on P8's "
+                f"flow: kernel {ms_ad:.3f} ms (median of 20, peak "
+                f"+{mib_ad:.0f} MiB) beside the full window {ms_full:.3f} "
+                f"ms (peak +{mib_full:.0f} MiB); plain {p_ms:.3f} ms (one "
+                f"run); err vs plain {e:.3g}, vs full window {e_full:.3g}; "
+                f"bound {b_ms:.3f} ms ({b_by}) [{card}]")
+        # max_disp 8: the TPU chunks this window (span 20 > 14); one launch
+        m8 = WarpModel(vol_shape=MAIN_VOL, coarse_shape=MAIN_COARSE,
+                       interpolation=3, bound="dct2", max_disp=8.0,
+                       tile_spread="auto", device=DEV)
+        m8.load_jax_params(
+            0.5 * np.random.default_rng(0).standard_normal(
+                (1,) + MAIN_COARSE + (3,)))
+        flow8 = m8.dense_flow().contiguous()
+        # the geometric "auto" bound need not hold for this flow (its
+        # control points vary far more than P8's); declare what it needs
+        auto8 = m8.auto_tile_spread()
+        sp8 = required_tile_spread(flow8)
+        log(f"max_disp 8 flow: tile_spread auto "
+            f"{tuple(round(x, 4) for x in auto8)}, required "
+            f"{tuple(round(x, 4) for x in sp8)} (required_tile_spread)")
+        full8, adap8 = runs(flow8, 8.0, None), runs(flow8, 8.0, sp8)
+        k_out = full8["value"][0]()
+        p_out, p_ms = timed_once(full8["value"][1])
+        e = hold(errs, "value", "256^3 max_disp 8 value", k_out, p_out)
+        e_ad, t_ad = rel_err(adap8["value"][0](), k_out)
+        if not e_ad <= t_ad:
+            raise AssertionError(f"max_disp 8 value_ad differs from the "
+                                 f"full window: {e_ad:.3g}")
+        del k_out, p_out
+        b_ms, b_by = bound(*work["value"])
+        times["value md8"] = dict(ms=cuda_ms(full8["value"][0], 20),
+                                  plain_ms=p_ms, bound_ms=b_ms)
+        ident = m8.dense_flow(torch.zeros_like(m8.params))
+        log(f"time value {MAIN_VOL} cubic dct2 max_disp 8 (|disp| max "
+            f"{(flow8 - ident).abs().max().item():.3f}, window span 20, "
+            f"one launch): kernel "
+            f"{times['value md8']['ms']:.3f} ms (median of 20), plain "
+            f"{p_ms:.3f} ms (one run), err {e:.3g}, bound {b_ms:.3f} ms "
+            f"({b_by}) [{card}]")
+        for mode in ("value", "push"):
+            ms_full = cuda_ms(full8[mode][0], 20)
+            ms_ad = cuda_ms(adap8[mode][0], 20)
+            log(f"time {mode} vs {mode}_ad {MAIN_VOL} cubic max_disp 8, "
+                f"tile_spread {tuple(round(x, 4) for x in sp8)}: full window "
+                f"{ms_full:.3f} ms, adaptive {ms_ad:.3f} ms (median of 20) "
+                f"[{card}]")
+    return times
+
+
 def short(kernel_name: str) -> str:
     for prefix in ("void ", "(anonymous namespace)::", "at::native::"):
         kernel_name = kernel_name.replace(prefix, "")
     return kernel_name[:60]
 
 
-def phase_profile(train) -> None:
+def phase_profile(train, ad) -> None:
     """Device busy time per step, its idle share and the heaviest kernels
-    of ``train_step`` and ``svf_train_step`` at 256^3 (torch.profiler)."""
+    of ``train_step``, ``svf_train_step`` and one step of the finest
+    (256^3) pyramid level (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
     model, svf = train["model"], train["svf"]
     moving, fixed = train["moving"], train["fixed"]
     for name, fn, reps in [
             ("train_step", lambda: train_step(model, moving, fixed), 5),
             ("svf_train_step jac_weight 0.1",
-             lambda: svf_train_step(svf, moving, fixed, jac_weight=0.1), 3)]:
+             lambda: svf_train_step(svf, moving, fixed, jac_weight=0.1), 3),
+            ("P9 finest pyramid level, one run_level step (adaptive)",
+             lambda: pyramid.run_level(ad["finest"], ad["params"],
+                                       ad["mov"], ad["fix"], 1), 5)]:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1120,16 +1465,36 @@ def main() -> None:
     phase_build()
     errs = {m: 0.0 for m in ALL_MODES}
     drive = Drive()
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        log(f"phase {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
     phase_kernels(errs)
+    lap("kernels")
     phase_sc_kernels(errs)
+    lap("scattered kernels")
+    phase_adaptive_kernels(errs)
+    lap("adaptive kernels")
     phase_train_small()
+    lap("small train steps")
     main_path = phase_main(errs, drive)
     train = phase_train_main(errs, drive)
+    lap("main path, P2-P4")
     sc = phase_sc_main(errs, drive)
+    lap("P5-P7")
+    ad = phase_adaptive_main(card, errs, drive, train)
+    lap("P8-P10")
     times = phase_times(card, errs, main_path, train)
+    lap("dense times")
     times.update(phase_sc_times(card, errs, sc))
+    lap("scattered times")
+    times.update(phase_adaptive_times(card, errs, ad, train))
+    lap("adaptive times")
     phase_library(card, main_path, sc)
-    phase_profile(train)
+    phase_profile(train, ad)
+    lap("library and profile")
     missing = [m for m in ALL_MODES if drive.total[m] == 0]
     if missing:
         raise AssertionError(f"modes never launched on a main path: "
@@ -1141,7 +1506,7 @@ def main() -> None:
                 else ("splat.cu", "scattered.py:997")
             name = m
         else:
-            src_ = "push.cu" if m in ("push", "pushgrad") else "warp.cu"
+            src_ = "push.cu" if m.startswith("push") else "warp.cu"
             line = "pallas_warp.py:619" if src_ == "push.cu" \
                 else "pallas_warp.py:160"
             name = m if src_ == "push.cu" else f"warp_{m}"

@@ -18,6 +18,15 @@
 //     leaves the window on some axis adds nothing, as in
 //     window._coef_fields) and unfolded tap factors are computed as the
 //     gather kernel of warp.cu computes them (spline_taps.cuh);
+//   - mode 2c, adaptive (pallas_warp.py:669-685): a site's test is
+//     d0 - base in [d0min, d0max] of the residual window, with the base of
+//     its (8, 8, 128) TPU push tile (an 8^3 site tile lies inside one), as
+//     in warp.cu; the patch then spans the union of the shifted windows,
+//     [-B + smin, T - 1 + B + smax] with B = ceil(max_disp) (x/y [-7, 14],
+//     z [-9, 17] at cubic order, max_disp=4 and tile_spread (1.5, 1.5, 4)),
+//     so that the per-axis fold tables stay as they are.  A patch that
+//     shrinks to the residual window and moves with the base needs a fold
+//     that is not separable: later work;
 //   - deriv mode takes three cotangent components per site and splats
 //     v_x (w'_x w_y w_z) + v_y (w_x w'_y w_z) + v_z (w_x w_y w'_z), as
 //     pallas_warp.py:715-727 does;
@@ -89,12 +98,15 @@ __global__ void __launch_bounds__(kWarp)
       const float gg[3] = {gp[0], gp[1], gp[2]};
       bool live = !p.masked || inside(gg[0], gg[1], gg[2], p.thr_lo,
                                       p.thr_hi);
+      int sh[3];  // the window test's shift (adaptive mode)
+      tile_shift(p, b, pos[0], pos[1], pos[2], sh);
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
         if (!live) break;
         const float n0f = node_origin(gg[d], order[d]);
         const float d0 = n0f - (float)pos[d];
-        live = d0 >= (float)p.d0min[d] && d0 <= (float)p.d0max[d];
+        live = d0 >= (float)(p.d0min[d] + sh[d]) &&
+               d0 <= (float)(p.d0max[d] + sh[d]);
         if (live) {
           it.n0[d] = (int)n0f - (s0[d] + g.lo[d]);
           stage_axis<NT, SPEC>(it, d, gg[d] - n0f, order[d]);

@@ -16,10 +16,17 @@ struct WarpParams {
   int order[3];
   int bound[3];
   int d0min[3];   // attainable node-origin offsets n0 - p of the window
-  int d0max[3];
+  int d0max[3];   // (adaptive mode: of the residual window, minus the base)
   float thr_hi[3];  // (n - 1) + thr, rounded to float32 on the host
   float thr_lo;     // -thr
   int masked;       // extrapolate != 1
+  // adaptive mode (pallas_warp.py:172-235, 669-685): per axis, the int32
+  // base displacement of each tile of the TPU kernel's grid, laid out
+  // (B, ntile[0], ntile[1], ntile[2]); a sample's window test is shifted
+  // by its tile's base.  Null pointers: the plain window.
+  const int* base[3];
+  int tile[3];
+  int ntile[3];
 };
 
 // A scattered cloud: B batches of P points (B, P, 3) in a volume of
@@ -233,6 +240,22 @@ __device__ __forceinline__ void fold_taps(int n0, int n, int order,
     if (GRAD) dw[j] *= s;
     if (HESS) hw[j] *= s;
   }
+}
+
+// The window-test shift of voxel (b, x, y, z) on each axis: its tile's base
+// in adaptive mode, 0 in the plain mode.  Uniform over a TPU tile, so a
+// warp's threads take the same branch and mostly read one base.
+__device__ __forceinline__ void tile_shift(const WarpParams& p, long long b,
+                                           int x, int y, int z,
+                                           int (&sh)[3]) {
+  sh[0] = sh[1] = sh[2] = 0;
+  if (p.base[0] == nullptr) return;
+  const long long t =
+      ((b * p.ntile[0] + x / p.tile[0]) * p.ntile[1] + y / p.tile[1]) *
+          p.ntile[2] +
+      z / p.tile[2];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) sh[d] = __ldg(p.base[d] + t);
 }
 
 // One axis of a dense warp: window test, taps, folded offsets and signed

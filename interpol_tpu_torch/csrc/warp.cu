@@ -22,6 +22,18 @@
 //   - the window semantics are reproduced exactly: a sample whose node
 //     origin offset d0 = n0 - p lies outside [d0min, d0max] on some axis
 //     gets no tap there and reads 0, as in window._coef_fields;
+//   - mode 1d, adaptive (pallas_warp.py:172-235): the test becomes
+//     d0 - base in [d0min, d0max] of the residual window, with the base of
+//     the voxel's (8, 8, 128) TPU tile from three int32 arrays
+//     (WarpParams.base, computed once per call by ops/tiles.py).  A runtime
+//     branch, uniform over a tile, shared by value, grad and hess: no
+//     template of its own.  The gather reads the same (order+1)^3 taps in
+//     both modes; only the test moves;
+//   - the TPU kernel's chunked mode (active / d0_ranges: sub-windows under
+//     the 16 MB VMEM cap, whose launches sum) needs no code here: the
+//     gather keeps no window-sized state, so one launch takes any window
+//     (max_disp=8 at cubic order, span 20, or a residual wider than 12) and
+//     is the counterpart of the chunks' sum;
 //   - the extrapolation mask is inbounds_mask (ndkernels.py): kept iff
 //     thr_lo < g < thr_hi[d] on every axis, strict on both sides;
 //   - channels loop inside the thread with the weights in registers; batch
@@ -85,16 +97,18 @@ __global__ void __launch_bounds__(256, 3)
   float wx[NT], wy[NT], wz[NT], dx[NT], dy[NT], dz[NT];
   float hx[NT], hy[NT], hz[NT];
   unsigned lx, ly, lz;  // the gather reads sign-0 taps with weight 0
+  int sh[3];            // the window test's shift (adaptive mode)
+  tile_shift(p, b, x, y, z, sh);
   keep = keep &&
          axis_taps<NT, D1, HESS>(gx, x, X, p.order[0], p.bound[0],
-                                 p.d0min[0], p.d0max[0], (long long)Y * Z,
-                                 ox, wx, dx, hx, lx) &&
+                                 p.d0min[0] + sh[0], p.d0max[0] + sh[0],
+                                 (long long)Y * Z, ox, wx, dx, hx, lx) &&
          axis_taps<NT, D1, HESS>(gy, y, Y, p.order[1], p.bound[1],
-                                 p.d0min[1], p.d0max[1], (long long)Z, oy,
-                                 wy, dy, hy, ly) &&
+                                 p.d0min[1] + sh[1], p.d0max[1] + sh[1],
+                                 (long long)Z, oy, wy, dy, hy, ly) &&
          axis_taps<NT, D1, HESS>(gz, z, Z, p.order[2], p.bound[2],
-                                 p.d0min[2], p.d0max[2], 1LL, oz, wz, dz,
-                                 hz, lz);
+                                 p.d0min[2] + sh[2], p.d0max[2] + sh[2], 1LL,
+                                 oz, wz, dz, hz, lz);
   const int ordx = p.order[0], ordy = p.order[1], ordz = p.order[2];
 
   for (long long c = 0; c < p.C; ++c) {

@@ -4,7 +4,8 @@ PyTorch port of ``interpol_tpu/models/warp.py``.  Coarse
 displacement control points are upsampled to a dense flow by a separable
 spline ``resize``, clamped with a tanh to the displacement budget, turned
 into a sampling grid, and the moving volume is warped by ``grid_pull(...,
-max_disp=)`` — on a CUDA tensor, the dense-warp CUDA kernel.
+max_disp=, tile_spread=)`` — on a CUDA tensor, the dense-warp CUDA kernel
+(in adaptive mode with ``tile_spread``).
 
 The JAX model is a ``NamedTuple`` config plus a ``(B, *coarse, D)``
 parameter array; here the config fields are constructor arguments and the
@@ -43,9 +44,11 @@ class WarpModel(nn.Module):
     Config fields as the JAX model: ``vol_shape``, ``coarse_shape``,
     ``interpolation`` (spline order of the warp and the upsampling),
     ``bound``, ``max_disp`` (displacement clamp, and the dense-warp path's
-    window bound), ``tile_spread`` (accepted and ignored: the full window
-    is exact for every flow; ``"auto"`` still moves the clamp to the coarse
-    nodes) and ``coarse_clamp``.
+    window bound), ``tile_spread`` (the adaptive per-tile windows of the
+    warp, forwarded to ``grid_pull``: a per-axis bound on the residual
+    displacement over each (8, 8, 128) kernel tile, or ``"auto"``, which
+    moves the clamp to the coarse nodes and derives a bound that such
+    flows honour, :meth:`auto_tile_spread`) and ``coarse_clamp``.
     """
 
     def __init__(self, vol_shape: Tuple[int, ...],
@@ -86,6 +89,11 @@ class WarpModel(nn.Module):
         return tuple(min(M, M * G * (t / 2) / s + 0.5)
                      for t, s in zip(tile, scale))
 
+    def _spread(self):
+        if isinstance(self.tile_spread, str):
+            return self.auto_tile_spread()
+        return self.tile_spread
+
     def dense_flow(self, params: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
         """Upsample coarse displacement control points to a dense sampling
@@ -118,6 +126,7 @@ class WarpModel(nn.Module):
         return grid_pull(moving, flow, interpolation=self.interpolation,
                          bound=self.bound, extrapolate=True,
                          max_disp=self.max_disp,
+                         tile_spread=self._spread(),
                          check_spread=check_spread)
 
     def forward(self, moving: torch.Tensor) -> torch.Tensor:

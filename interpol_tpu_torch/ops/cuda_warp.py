@@ -8,9 +8,19 @@ The Hopper counterparts of ``interpol_tpu/ops/pallas_warp.py``:
 PyTorch versions are ``ops/window.py``'s ``_pull_impl_torch``,
 ``_grad_impl_torch``, ``_hess_impl_torch``, ``_push_impl_torch`` and
 ``_pushgrad_impl_torch``, a different formulation (shift-FMA), so
-comparing the two on the card is a real check.  The push is the race-free
-patch splat (``csrc/patch_splat.cuh``, host half in ``ops/_patch.py``):
-two runs give the same bits.
+comparing the two on the card is a real check.
+
+``spread`` selects the adaptive mode of the TPU kernels (1d, 2c): the
+wrapper computes the per-tile bases once, on the card (``ops/tiles.py``,
+the same function the plain versions call), and hands the kernel three
+int32 base arrays and the TPU tile; the kernel shifts each sample's window
+test by its tile's base, a runtime branch with no template of its own.
+The push's patch then covers the union of the residual windows.  The
+JAX package's chunked mode (sub-windows under the TPU's VMEM cap, whose
+launches sum) has no counterpart: one launch takes any window.
+
+The push is the race-free patch splat (``csrc/patch_splat.cuh``, host
+half in ``ops/_patch.py``): two runs give the same bits.
 
 Each wrapper takes CUDA float32 contiguous tensors only and raises on
 anything else; it never falls back to the plain version.  It also raises
@@ -29,6 +39,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ._patch import PatchGeom, patch_geom
+from .tiles import lifted_tile, tile_bases
 from .window import _md_tuple, window_range
 
 __all__ = ["warp_cuda", "hess_cuda", "push_cuda", "LAUNCHES",
@@ -37,7 +48,8 @@ __all__ = ["warp_cuda", "hess_cuda", "push_cuda", "LAUNCHES",
 LAUNCHES = 0
 LAUNCHES_BY_MODE: Dict[str, int] = {
     "value": 0, "grad": 0, "value+grad": 0, "hess": 0, "push": 0,
-    "pushgrad": 0}
+    "pushgrad": 0, "value_ad": 0, "grad_ad": 0, "value+grad_ad": 0,
+    "hess_ad": 0, "push_ad": 0, "pushgrad_ad": 0}
 
 
 def reset_launches() -> None:
@@ -47,10 +59,10 @@ def reset_launches() -> None:
         LAUNCHES_BY_MODE[k] = 0
 
 
-def _count(mode: str) -> None:
+def _count(mode: str, adaptive: bool) -> None:
     global LAUNCHES
     LAUNCHES += 1
-    LAUNCHES_BY_MODE[mode] += 1
+    LAUNCHES_BY_MODE[mode + ("_ad" if adaptive else "")] += 1
 
 
 class _WarpParams(ctypes.Structure):
@@ -66,6 +78,9 @@ class _WarpParams(ctypes.Structure):
         ("thr_hi", ctypes.c_float * 3),
         ("thr_lo", ctypes.c_float),
         ("masked", ctypes.c_int),
+        ("base", ctypes.c_void_p * 3),
+        ("tile", ctypes.c_int * 3),
+        ("ntile", ctypes.c_int * 3),
     ]
 
 
@@ -112,10 +127,12 @@ def _lift3(inp, grid, orders, bounds, md, deriv=False):
 
 
 def _launch_setup(name, inp, grid, orders, bounds, extrapolate, max_disp,
-                  deriv=False):
+                  spread=None, deriv=False, push=False):
     """Check the inputs, lift 1-D/2-D to 3-D and fill the kernel
-    parameters.  Returns (inp3, grid3, params, nd), or None when there is
-    nothing to compute."""
+    parameters; in adaptive mode (``spread``) compute the tile bases of
+    the pull family's tiles or, with ``push``, of the push's.  Returns
+    (inp3, grid3, params, nd, bases), or None when there is nothing to
+    compute; keep ``bases`` alive until the kernel has run."""
     _check_inputs(name, inp, grid, deriv)
     D = grid.shape[-1]
     orders = tuple(int(o) for o in orders)
@@ -128,18 +145,27 @@ def _launch_setup(name, inp, grid, orders, bounds, extrapolate, max_disp,
                          f"out of range")
     md = _md_tuple(max_disp, D)
     B, C = inp.shape[:2]
+    ishape = tuple(grid.shape[1:-1])
+    if B * C * math.prod(ishape) == 0:
+        return None
+    bases = None
+    if spread is not None:
+        tile = lifted_tile(ishape, push)
+        bases = tile_bases(grid, md, tile)      # (B, *ntiles, D) int32
+        window = _md_tuple(spread, D)
+    else:
+        window = md
     nd = 0
     if D < 3:
         inp, grid, orders, bounds, md, nd = _lift3(inp, grid, orders,
                                                    bounds, md, deriv)
+        window = (0.0,) * nd + window
     shape3 = tuple(grid.shape[1:4])
-    if B * C * math.prod(shape3) == 0:
-        return None
     p = _WarpParams()
     p.B, p.C = B, C
     thr = 0.05 if extrapolate == 0 else 0.55
     for d in range(3):
-        smin, smax = window_range(orders[d], md[d])
+        smin, smax = window_range(orders[d], window[d])
         p.shape[d] = shape3[d]
         p.order[d] = orders[d]
         p.bound[d] = bounds[d]
@@ -150,7 +176,18 @@ def _launch_setup(name, inp, grid, orders, bounds, extrapolate, max_disp,
                                          dtype=torch.float32))
     p.thr_lo = float(torch.tensor(-thr, dtype=torch.float32))
     p.masked = int(extrapolate != 1)
-    return inp, grid, p, nd
+    if bases is not None:
+        # (3, B, *ntiles3): the lifted axes are one tile of base 0
+        tile3 = (1,) * nd + tuple(tile)
+        nt3 = (1,) * nd + tuple(bases.shape[1:-1])
+        bases = torch.cat([bases.new_zeros(bases.shape[:-1] + (nd,)),
+                           bases], -1).reshape((B,) + nt3 + (3,))
+        bases = torch.movedim(bases, -1, 0).contiguous()
+        for d in range(3):
+            p.base[d] = bases[d].data_ptr()
+            p.tile[d] = tile3[d]
+            p.ntile[d] = nt3[d]
+    return inp, grid, p, nd, bases
 
 
 def _call(name, t, *args):
@@ -166,7 +203,7 @@ def _call(name, t, *args):
 
 def warp_cuda(inp: torch.Tensor, grid: torch.Tensor,
               orders: Sequence[int], bounds: Sequence[int],
-              extrapolate: int, max_disp, value: bool = True,
+              extrapolate: int, max_disp, spread=None, value: bool = True,
               grad: bool = False
               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Dense-warp pull and/or spatial gradient on the card.
@@ -175,12 +212,12 @@ def warp_cuda(inp: torch.Tensor, grid: torch.Tensor,
     float32, contiguous.  Returns ``(val, grad)``: ``val`` (B, C, *ishape)
     if ``value`` else None, ``grad`` (B, C, *ishape, D) if ``grad`` else
     None.  Same semantics as ``window._pull_impl_torch`` /
-    ``_grad_impl_torch``.
+    ``_grad_impl_torch``; ``spread``: the adaptive mode (1d).
     """
     if not (value or grad):
         raise ValueError("nothing to compute")
     setup = _launch_setup("warp_cuda", inp, grid, orders, bounds,
-                          extrapolate, max_disp)
+                          extrapolate, max_disp, spread)
     B, C = inp.shape[:2]
     ishape = tuple(inp.shape[2:])
     D = len(ishape)
@@ -188,7 +225,7 @@ def warp_cuda(inp: torch.Tensor, grid: torch.Tensor,
     gout = inp.new_empty((B, C) + ishape + (D,)) if grad else None
     if setup is None:
         return val, gout
-    inp3, grid3, p, nd = setup
+    inp3, grid3, p, nd, _bases = setup
     # the lifted gradient has 3 components; the kernel writes it whole
     g3 = gout if nd == 0 or not grad \
         else inp.new_empty(tuple(inp3.shape) + (3,))
@@ -197,7 +234,8 @@ def warp_cuda(inp: torch.Tensor, grid: torch.Tensor,
           g3.data_ptr() if grad else None, None, ctypes.byref(p),
           int(value), int(grad), 0)
     _count("value+grad" if value and grad else ("value" if value
-                                                else "grad"))
+                                                else "grad"),
+           spread is not None)
     if grad and nd:
         gout.copy_(g3[..., nd:].reshape(gout.shape))
     return val, gout
@@ -205,22 +243,22 @@ def warp_cuda(inp: torch.Tensor, grid: torch.Tensor,
 
 def hess_cuda(inp: torch.Tensor, grid: torch.Tensor,
               orders: Sequence[int], bounds: Sequence[int],
-              extrapolate: int, max_disp) -> torch.Tensor:
+              extrapolate: int, max_disp, spread=None) -> torch.Tensor:
     """Dense-warp spatial Hessian on the card: inp (B, C, *ishape), grid
     (B, *ishape, D) -> (B, C, *ishape, D, D), symmetric.  Same semantics
     as ``window._hess_impl_torch``; inputs as :func:`warp_cuda`."""
     setup = _launch_setup("hess_cuda", inp, grid, orders, bounds,
-                          extrapolate, max_disp)
+                          extrapolate, max_disp, spread)
     ishape = tuple(inp.shape[2:])
     D = len(ishape)
     out = inp.new_empty(tuple(inp.shape) + (D, D))
     if setup is None:
         return out
-    inp3, grid3, p, nd = setup
+    inp3, grid3, p, nd, _bases = setup
     h3 = out if nd == 0 else inp.new_empty(tuple(inp3.shape) + (3, 3))
     _call("warp", inp3, inp3.data_ptr(), grid3.data_ptr(), None, None,
           h3.data_ptr(), ctypes.byref(p), 0, 0, 1)
-    _count("hess")
+    _count("hess", spread is not None)
     if nd:
         # cut the dummy rows and columns
         out.copy_(h3[..., nd:, nd:].reshape(out.shape))
@@ -228,13 +266,14 @@ def hess_cuda(inp: torch.Tensor, grid: torch.Tensor,
 
 
 # site tile of the push: 8^3 sites, a 19^3 patch (27 KB) at cubic order and
-# max_disp=4
+# max_disp=4.  In adaptive mode an 8^3 tile at a multiple of 8 lies inside
+# one (8, 8, 128) tile of the TPU push, whose base it shares.
 PUSH_TILE = 8
 
 
 def push_cuda(inp: torch.Tensor, grid: torch.Tensor,
               orders: Sequence[int], bounds: Sequence[int],
-              extrapolate: int, max_disp, deriv: bool = False
+              extrapolate: int, max_disp, spread=None, deriv: bool = False
               ) -> torch.Tensor:
     """Dense-warp splat on the card, the adjoint of :func:`warp_cuda`.
 
@@ -243,28 +282,33 @@ def push_cuda(inp: torch.Tensor, grid: torch.Tensor,
     the gradient): inp (B, C, *ishape, D) -> (B, C, *ishape).  Same
     semantics as ``window._push_impl_torch`` / ``_pushgrad_impl_torch``;
     race-free, so two runs give the same bits.  Takes a scratch buffer of
-    the site tiles' patches (C x B x tiles x patch floats).
+    the site tiles' patches (C x B x tiles x patch floats).  ``spread``:
+    the adaptive mode (2c); the patch then spans the union of the
+    residual windows, ``ceil(max_disp)`` wider on each side.
     """
     name = "push_cuda"
     setup = _launch_setup(name, inp, grid, orders, bounds, extrapolate,
-                          max_disp, deriv)
+                          max_disp, spread, deriv, push=True)
     B, C = inp.shape[:2]
     ishape = tuple(grid.shape[1:-1])
     out = inp.new_empty((B, C) + ishape)
     if setup is None:
         return out.zero_()
-    inp3, grid3, p, _ = setup
+    inp3, grid3, p, nd, bases = setup
     shape3 = tuple(p.shape)
     tile = tuple(min(PUSH_TILE, n) for n in shape3)
-    lo = tuple(p.d0min)
-    extent = tuple(t + p.d0max[d] + p.order[d] - p.d0min[d]
+    # the largest base on each axis widens the patch (0 in plain mode)
+    reach = (0,) * 3 if bases is None else (0,) * nd + tuple(
+        math.ceil(m) for m in _md_tuple(max_disp, 3 - nd))
+    lo = tuple(p.d0min[d] - reach[d] for d in range(3))
+    extent = tuple(t + p.d0max[d] + p.order[d] + reach[d] - lo[d]
                    for d, t in enumerate(tile))
     geom, scratch, tables = patch_geom(B, C, shape3, tuple(p.bound), tile,
                                        lo, extent, inp.device)
     _call("push", inp3, inp3.data_ptr(), grid3.data_ptr(),
           scratch.data_ptr(), out.data_ptr(), ctypes.byref(p),
           ctypes.byref(geom), int(deriv))
-    _count("pushgrad" if deriv else "push")
+    _count("pushgrad" if deriv else "push", spread is not None)
     return out
 
 

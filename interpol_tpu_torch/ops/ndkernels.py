@@ -8,8 +8,10 @@ PyTorch port of ``interpol_tpu/ops/ndkernels.py`` (``inbounds_mask``
 ``pushhess_core``, the adjoint of ``hess_core`` in the image.  These are
 the plain versions of the scattered kernels (``csrc/gather.cu``,
 ``csrc/splat.cu``), the path of every D > 3 cloud on every device, and
-the reference the kernels are held to.  The scatters are ``scatter_add_``:
-deterministic on the CPU, atomic (run-to-run order) on the card.
+the reference the kernels are held to.  The scatters sum in a fixed order
+on every device (:func:`_fixed_order_add`: a stable sort by destination,
+then a pairwise sum within each run of equal destinations), so two runs
+give the same bits on the card too, as the JAX package's splats do.
 
 Layout (batch written out where the JAX side vmaps):
     input  : (B, C, *ishape)  (pull family) / (B, C, P[, D[, D]]) (push)
@@ -115,26 +117,59 @@ def _gather_taps(inp, grid, orders, bounds, need_grad, need_hess=False):
         yield val, taps
 
 
+def _fixed_order_add(acc, idx, vals):
+    """``acc[:, idx[k]] += vals[:, k]`` for every k, in an order fixed by
+    the input alone: a stable sort by destination, then a pairwise sum
+    within each run of equal destinations (the values at rank r + s are
+    added to those at rank r, for s = 1, 2, 4, ...), then one add per
+    destination.  No two adds of a pass touch one address, so the result
+    is the same on every run and device.  ``acc`` (C, V), ``idx`` (N,),
+    ``vals`` (C, N)."""
+    idx, perm = torch.sort(idx, stable=True)
+    vals = vals[:, perm]
+    n = idx.numel()
+    first = torch.ones(n, dtype=torch.bool, device=idx.device)
+    first[1:] = idx[1:] != idx[:-1]
+    starts = torch.nonzero(first).squeeze(1)
+    runs = torch.diff(starts, append=starts.new_tensor([n]))
+    run_of = torch.cumsum(first, 0) - 1
+    rank = torch.arange(n, device=idx.device) - starts[run_of]
+    length = runs[run_of]
+    step = 1
+    longest = int(runs.max()) if n else 0
+    while step < longest:
+        src = torch.nonzero((rank % (2 * step) == 0)
+                            & (rank + step < length)).squeeze(1)
+        vals = vals.index_copy(1, src, vals[:, src] + vals[:, src + step])
+        step *= 2
+    dst = idx[starts]
+    return acc.index_copy(1, dst, acc[:, dst] + vals[:, starts])
+
+
 def _scatter_taps(term_of, grid, oshape, orders, bounds, need_grad,
                   need_hess, C, wdtype):
     """Adjoint of :func:`_gather_taps`: for every node of the tap
-    product, scatter-add ``term_of(taps)`` (B, C, P) times the fold sign
-    at the node's folded index.  Returns (B, C, *oshape)."""
+    product, add ``term_of(taps)`` (B, C, P) times the fold sign at the
+    node's folded index, in a fixed order (:func:`_fixed_order_add`).
+    Returns (B, C, *oshape)."""
     D = grid.shape[-1]
     B, P = grid.shape[:2]
     V = math.prod(oshape)
     strides = [math.prod(oshape[d + 1:]) for d in range(D)]
     tables = _tap_tables(grid, oshape, orders, bounds, need_grad, wdtype,
                          need_hess)
-    out = torch.zeros((B, C, V), dtype=wdtype, device=grid.device)
+    # (C, B * V): one destination index over the batch
+    out = torch.zeros((C, B * V), dtype=wdtype, device=grid.device)
+    boff = torch.arange(B, device=grid.device)[:, None] * V
     for taps in itertools.product(*tables):
         lin = sum(t[0] * s for t, s in zip(taps, strides))
         term = term_of(taps)
         sign = _sign(taps)
         if sign is not None:
             term = term * sign[:, None]
-        out.scatter_add_(2, lin[:, None, :].expand(B, C, P), term)
-    return out.reshape((B, C) + tuple(oshape))
+        out = _fixed_order_add(out, (lin + boff).reshape(-1),
+                               term.transpose(0, 1).reshape(C, B * P))
+    return out.reshape((C, B) + tuple(oshape)).transpose(0, 1)
 
 
 def pull_core(inp: torch.Tensor, grid: torch.Tensor,

@@ -1,13 +1,15 @@
-"""Resize (scipy-zoom-like) on the separable route.
+"""Resize (scipy-zoom-like) and restrict (its adjoint) on the separable
+route.
 
-PyTorch port of ``interpol_tpu/ops/resize.py:42-128``, with the four anchor
+PyTorch port of ``interpol_tpu/ops/resize.py:42-191``, with the four anchor
 modes (centers, edges, first, last) and the same defaults
-(``bound='nearest'``, ``extrapolate=True``).  Only the separable route is
-ported: the sampling grid is an outer product of per-axis lines, so the
+(``bound='nearest'``, ``extrapolate=True``; ``restrict`` divides by the
+accumulated scale unless ``reduce_sum=True``).  Only the separable route
+is ported: the sampling grid is an outer product of per-axis lines, so the
 resample is D matmuls (``ops/separable.py``).  ``prefilter=True`` (the
-default, as in the JAX package) raises until ``ops/coeff.py`` is ported;
-integer label maps raise until the label path is ported.  ``restrict``
-waits for ``separable_push``.
+default of ``resize``, as in the JAX package) raises until
+``ops/coeff.py`` is ported; integer label maps raise until the label path
+is ported.
 """
 from __future__ import annotations
 
@@ -15,14 +17,13 @@ import torch
 
 from ..options import normalize_options
 from ..utils.shapes import make_list
-from .separable import separable_pull
+from .separable import separable_pull, separable_push
 
-__all__ = ["resize"]
+__all__ = ["resize", "restrict"]
 
 
-def _resolve_geometry(inshape, factor, shape, ndim):
-    """factor/shape resolution (the JAX package's ``_resolve_geometry``
-    with ``for_restrict=False``)."""
+def _resolve_geometry(inshape, factor, shape, ndim, for_restrict=False):
+    """factor/shape resolution (the JAX package's ``_resolve_geometry``)."""
     factor = make_list(factor) if factor else []
     shape = make_list(shape) if shape else []
     if factor:
@@ -31,11 +32,36 @@ def _resolve_geometry(inshape, factor, shape, ndim):
         raise ValueError("One of `factor` or `shape` must be provided")
     if shape:
         shape = make_list(shape, ndim)
+    elif for_restrict:
+        shape = [int(i / f) for i, f in zip(inshape, factor)]
     else:
         shape = [int(i * f) for i, f in zip(inshape, factor)]
     if not factor:
-        factor = [o / i for o, i in zip(shape, inshape)]
+        if for_restrict:
+            factor = [i / o for i, o in zip(inshape, shape)]
+        else:
+            factor = [o / i for o, i in zip(shape, inshape)]
     return factor, shape
+
+
+def _ndim_anchors(image, factor, shape, anchor):
+    anchor_list = make_list(anchor)
+    ndim = max(len(make_list(factor) if factor else []),
+               len(make_list(shape) if shape else []),
+               len(anchor_list)) or (image.ndim - 2)
+    return ndim, [a[0].lower() for a in make_list(anchor_list, ndim)]
+
+
+def _check_ported(image, prefilter, name):
+    if prefilter:
+        raise NotImplementedError(
+            f"{name}(prefilter=True) needs the spline prefilter "
+            f"(ops/coeff.py), which is not ported yet (ROADMAP queue 1, "
+            f"Prefilter)")
+    if not torch.is_floating_point(image):
+        raise NotImplementedError(
+            f"{name} of label maps is not ported yet (ROADMAP queue 1, "
+            f"Label maps)")
 
 
 def resize(image, factor=None, shape=None, anchor="c",
@@ -55,11 +81,7 @@ def resize(image, factor=None, shape=None, anchor="c",
     kwargs : ``bound`` (default 'nearest'), ``extrapolate`` (default True)
     """
     image = torch.as_tensor(image)
-    anchor_list = make_list(anchor)
-    ndim = max(len(make_list(factor) if factor else []),
-               len(make_list(shape) if shape else []),
-               len(anchor_list)) or (image.ndim - 2)
-    anchors = [a[0].lower() for a in make_list(anchor_list, ndim)]
+    ndim, anchors = _ndim_anchors(image, factor, shape, anchor)
     inshape = image.shape[-ndim:]
     factor, shape = _resolve_geometry(inshape, factor, shape, ndim)
 
@@ -67,15 +89,7 @@ def resize(image, factor=None, shape=None, anchor="c",
     kwargs.setdefault("extrapolate", True)
     kwargs.setdefault("interpolation", interpolation)
     kwargs.setdefault("prefilter", prefilter)
-    if kwargs["prefilter"]:
-        raise NotImplementedError(
-            "resize(prefilter=True) needs the spline prefilter "
-            "(ops/coeff.py), which is not ported yet (ROADMAP queue 1, "
-            "Prefilter)")
-    if not torch.is_floating_point(image):
-        raise NotImplementedError(
-            "resize of label maps is not ported yet (ROADMAP queue 1, "
-            "Label maps)")
+    _check_ported(image, kwargs["prefilter"], "resize")
 
     kw = dict(dtype=image.dtype, device=image.device)
     lines = []
@@ -98,3 +112,56 @@ def resize(image, factor=None, shape=None, anchor="c",
         kwargs["interpolation"], kwargs["bound"], kwargs["extrapolate"],
         ndim)
     return separable_pull(image, lines, orders, bounds, ex)
+
+
+def restrict(image, factor=None, shape=None, anchor="c",
+             interpolation=1, reduce_sum=False, **kwargs):
+    """Restrict (the adjoint of resize) an image by a factor or to a
+    target shape.
+
+    The sampling grid lives in the *output* space; the image is splatted
+    by the transposed separable sampling matrices and divided by the
+    accumulated scale unless ``reduce_sum``.  Arguments as :func:`resize`
+    (``prefilter`` defaults to False and must stay so until the
+    prefilter is ported).
+    """
+    image = torch.as_tensor(image)
+    ndim, anchors = _ndim_anchors(image, factor, shape, anchor)
+    inshape = image.shape[-ndim:]
+    factor, shape = _resolve_geometry(inshape, factor, shape, ndim,
+                                      for_restrict=True)
+
+    kw = dict(dtype=image.dtype, device=image.device)
+    lines = []
+    fullscale = 1.0
+    for anch, f, insz, outsz in zip(anchors, factor, inshape, shape):
+        if anch == "c":
+            lines.append(torch.linspace(0, outsz - 1, insz, **kw))
+            fullscale *= (insz - 1) / (outsz - 1)
+        elif anch == "e":
+            scale = outsz / insz
+            shift = 0.5 * (scale - 1)
+            fullscale *= scale
+            lines.append(torch.arange(insz, **kw) * scale + shift)
+        elif anch == "f":
+            fullscale *= 1 / f
+            lines.append(torch.arange(insz, **kw) / f)
+        elif anch == "l":
+            shift = (outsz - 1) - (insz - 1) / f
+            fullscale *= 1 / f
+            lines.append(torch.arange(insz, **kw) / f + shift)
+        else:
+            raise ValueError(f"Unknown anchor {anch}")
+
+    kwargs.setdefault("bound", "nearest")
+    kwargs.setdefault("extrapolate", True)
+    kwargs.setdefault("interpolation", interpolation)
+    kwargs.setdefault("prefilter", False)
+    _check_ported(image, kwargs["prefilter"], "restrict")
+    orders, bounds, ex = normalize_options(
+        kwargs["interpolation"], kwargs["bound"], kwargs["extrapolate"],
+        ndim)
+    out = separable_push(image, lines, tuple(shape), orders, bounds, ex)
+    if not reduce_sum:
+        out = out / fullscale
+    return out

@@ -1,11 +1,11 @@
 """Separable spline sampling along outer-product grids as per-axis dense
 matrix contractions.
 
-PyTorch port of ``interpol_tpu/ops/separable.py:38-92``.  ``resize`` grids
-are an outer product of D 1-D affine sample lines, so each axis is
-resampled with one (out_n x in_n) sampling matrix applied by
-``torch.tensordot`` (a plain matmul, as the JAX package leaves it to XLA).
-``separable_push`` (the adjoint, for ``restrict``) is not ported yet.
+PyTorch port of ``interpol_tpu/ops/separable.py:38-109``.  ``resize`` and
+``restrict`` grids are an outer product of D 1-D affine sample lines, so
+each axis is resampled with one (out_n x in_n) sampling matrix applied by
+``torch.tensordot`` (a plain matmul, as the JAX package leaves it to
+XLA); ``separable_push``, the adjoint, applies the transposed matrices.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch
 from .bounds import fold_index, fold_sign
 from .splines import bspline_taps, node_origin
 
-__all__ = ["sampling_matrix", "separable_pull"]
+__all__ = ["sampling_matrix", "separable_pull", "separable_push"]
 
 
 def sampling_matrix(line: torch.Tensor, n_in: int, order: int, bound: int,
@@ -66,5 +66,23 @@ def separable_pull(inp: torch.Tensor, lines: Sequence[torch.Tensor],
         axis = out.ndim - D + d
         out = torch.movedim(
             torch.tensordot(S.to(out.dtype), out, dims=([1], [axis])),
+            0, axis)
+    return out
+
+
+def separable_push(inp: torch.Tensor, lines: Sequence[torch.Tensor],
+                   oshape: Tuple[int, ...], orders: Tuple[int, ...],
+                   bounds: Tuple[int, ...],
+                   extrapolate: int = 1) -> torch.Tensor:
+    """Adjoint of :func:`separable_pull`: splat ``inp (...,
+    *len(lines))`` onto ``oshape`` with the per-axis transposed sampling
+    matrices (scatter-free)."""
+    D = len(lines)
+    out = inp
+    for d, (line, n, o, b) in enumerate(zip(lines, oshape, orders, bounds)):
+        S = sampling_matrix(line, n, o, b, extrapolate)
+        axis = out.ndim - D + d
+        out = torch.movedim(
+            torch.tensordot(S.T.to(out.dtype), out, dims=([1], [axis])),
             0, axis)
     return out

@@ -26,8 +26,20 @@ mutual adjoints, grad and pushgrad too; the grid cotangents come from the
 next derivative up).  The same Functions run on both devices: the plain
 versions for CPU tensors, the kernels for CUDA tensors.  A sample whose
 node origin falls outside the window on some axis gets no tap there, in
-every formulation, exactly as in the JAX package.  ``spread`` is accepted
-and ignored (full window), as the JAX package's XLA tier ignores it.
+every formulation, exactly as in the JAX package.
+
+``spread`` (``tile_spread`` of the API) selects the adaptive mode of the
+JAX package's Pallas kernels (``pallas_warp.py:110-158, 172-235,
+669-685``): each tile of the TPU kernel's grid gets an integer base
+displacement (``ops/tiles.py``), and a sample keeps its taps on an axis iff
+``d0 - base`` lies in ``[smin_r, smax_r - order]``, the residual window of
+``spread``.  The port follows the kernel on every device, in the plain
+versions too: they sum over the union of the residual windows, ``[-B +
+smin_r, B + smax_r]`` with ``B = ceil(max_disp)``, and mask the samples
+that fail the test.  On grids that honour the declared spread this is the
+full window's result; the JAX package's XLA tier ignores ``spread``, so the
+two differ only on grids that break it (``check_spread=True`` of the API
+raises there).
 
 Layout (the JAX side's vmap written out as a batch dimension):
     inp (B, C, *ishape), grid (B, *ishape, D)
@@ -46,6 +58,7 @@ import torch
 from .bounds import fold_index, fold_sign
 from .ndkernels import inbounds_mask
 from .splines import bspline_taps, node_origin
+from .tiles import base_field, lifted_tile, tile_bases
 
 __all__ = ["window_range", "pull_window", "push_window", "grad_window",
            "pushgrad_window", "hess_window"]
@@ -81,15 +94,26 @@ def _md_tuple(max_disp, D):
     return (float(max_disp),) * D
 
 
-def _window_geom(orders, max_disp, D):
-    """Per-axis pad widths (lo, hi) that hold every shift of the window."""
+def _shift_ranges(orders, max_disp, spread, D):
+    """Per-axis shift ranges [smin, smax] of the window: that of
+    ``max_disp``, or in adaptive mode the residual window of ``spread``
+    widened by the largest base, ``ceil(max_disp)``, on either side."""
     md = _md_tuple(max_disp, D)
-    los, his = [], []
+    if spread is None:
+        return [window_range(orders[d], md[d]) for d in range(D)]
+    sp = _md_tuple(spread, D)
+    out = []
     for d in range(D):
-        smin, smax = window_range(orders[d], md[d])
-        los.append(max(0, -smin))
-        his.append(max(0, smax))
-    return los, his
+        smin, smax = window_range(orders[d], sp[d])
+        B = math.ceil(md[d])
+        out.append((smin - B, smax + B))
+    return out
+
+
+def _window_geom(ranges):
+    """Per-axis pad widths (lo, hi) that hold every shift of the window."""
+    return ([max(0, -smin) for smin, _ in ranges],
+            [max(0, smax) for _, smax in ranges])
 
 
 def _pad_folded(inp: torch.Tensor, ishape, bounds, lo: Sequence[int],
@@ -113,25 +137,24 @@ def _pad_folded(inp: torch.Tensor, ishape, bounds, lo: Sequence[int],
     return out
 
 
-def _coef_fields(grid, orders, max_disp, wdtype, deriv_axes=(),
+def _coef_fields(grid, orders, ranges, wdtype, deriv_axes=(),
                  deriv2_axis=None):
     """Per-axis coefficient fields.
 
-    ``grid``: (B, *ishape, D).  Returns (ranges, coefs): ranges[d] =
-    (smin, smax); coefs[d] is a list of (smax-smin+1) tensors shaped
-    (B, *ishape), where coefs[d][k] is the weight this sample contributes
-    at relative shift smin+k along axis d.  ``deriv_axes`` selects the
-    first-derivative factors on those axes (a mixed second derivative is
-    the product of two first derivatives), ``deriv2_axis`` the
-    second-derivative factors on that axis.
+    ``grid``: (B, *ishape, D); ``ranges[d]`` = (smin, smax), the shifts of
+    axis d (:func:`_shift_ranges`).  Returns coefs: coefs[d] is a list of
+    (smax-smin+1) tensors shaped (B, *ishape), where coefs[d][k] is the
+    weight this sample contributes at relative shift smin+k along axis d.
+    ``deriv_axes`` selects the first-derivative factors on those axes (a
+    mixed second derivative is the product of two first derivatives),
+    ``deriv2_axis`` the second-derivative factors on that axis.
     """
     D = grid.shape[-1]
-    md = _md_tuple(max_disp, D)
-    ranges, coefs = [], []
+    coefs = []
     for d in range(D):
         g = grid[..., d].to(wdtype)
         order = orders[d]
-        smin, smax = window_range(order, md[d])
+        smin, smax = ranges[d]
         n0, t = node_origin(g, order)
         need_grad, need_hess = d in deriv_axes, deriv2_axis == d
         w, gr, he = bspline_taps(t, order, grad=need_grad, hess=need_hess)
@@ -150,9 +173,44 @@ def _coef_fields(grid, orders, max_disp, wdtype, deriv_axes=(),
                     term = torch.where(d0 == s - j, taps[j], 0)
                     acc = term if acc is None else acc + term
             cs.append(acc if acc is not None else torch.zeros_like(g))
-        ranges.append((smin, smax))
         coefs.append(cs)
-    return ranges, coefs
+    return coefs
+
+
+def _adaptive_keep(grid, orders, max_disp, spread, push, wdtype):
+    """(B, *ishape) mask of the samples that keep their taps in adaptive
+    mode: ``d0 - base`` in ``[smin_r, smax_r - order]`` on every axis,
+    with the bases of the pull family's tiles or, with ``push``, of the
+    push's (``ops/tiles.py``).  A constant for every derivative."""
+    D = grid.shape[-1]
+    ishape = tuple(grid.shape[1:-1])
+    sp = _md_tuple(spread, D)
+    tile = lifted_tile(ishape, push)
+    with torch.no_grad():
+        base = base_field(tile_bases(grid, _md_tuple(max_disp, D), tile,
+                                     wdtype), tile, ishape)
+        keep = None
+        for d in range(D):
+            n0, _ = node_origin(grid[..., d].detach().to(wdtype), orders[d])
+            shape = [1] * (D + 1)
+            shape[1 + d] = ishape[d]
+            p = torch.arange(ishape[d], device=grid.device).reshape(shape)
+            r = n0 - p - base[..., d]
+            smin, smax = window_range(orders[d], sp[d])
+            k = (r >= smin) & (r <= smax - orders[d])
+            keep = k if keep is None else keep & k
+    return keep.to(wdtype)
+
+
+def _mask(grid, ishape, extrapolate, wdtype, orders, max_disp, spread,
+          push=False):
+    """The extrapolation mask times, in adaptive mode, the samples that
+    keep their taps; None when every sample counts."""
+    mask = inbounds_mask(grid, ishape, extrapolate, wdtype)
+    if spread is None:
+        return mask
+    keep = _adaptive_keep(grid, orders, max_disp, spread, push, wdtype)
+    return keep if mask is None else mask * keep
 
 
 def _slice_pad(vpad, offs, lo, ishape):
@@ -181,36 +239,40 @@ def _accumulate(vpad, ranges, coefs, lo, ishape):
     return out
 
 
-def _pull_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
+def _pull_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp,
+                     spread=None):
     """Plain shift-FMA pull: (B, C, *ishape), (B, *ishape, D) ->
     (B, C, *ishape)."""
     D = grid.shape[-1]
     ishape = tuple(inp.shape[-D:])
     wdtype = torch.promote_types(inp.dtype, grid.dtype)
-    lo, hi = _window_geom(orders, max_disp, D)
+    ranges = _shift_ranges(orders, max_disp, spread, D)
+    lo, hi = _window_geom(ranges)
     vpad = _pad_folded(inp.to(wdtype), ishape, bounds, lo, hi, wdtype)
-    ranges, coefs = _coef_fields(grid, orders, max_disp, wdtype)
+    coefs = _coef_fields(grid, orders, ranges, wdtype)
     out = _accumulate(vpad, ranges, coefs, lo, ishape)
-    mask = inbounds_mask(grid, ishape, extrapolate, wdtype)
+    mask = _mask(grid, ishape, extrapolate, wdtype, orders, max_disp, spread)
     if mask is not None:
         out = out * mask[:, None]
     return out
 
 
-def _grad_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
+def _grad_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp,
+                     spread=None):
     """Plain shift-FMA spatial gradients: (B, C, *ishape, D)."""
     D = grid.shape[-1]
     ishape = tuple(inp.shape[-D:])
     wdtype = torch.promote_types(inp.dtype, grid.dtype)
-    lo, hi = _window_geom(orders, max_disp, D)
+    ranges = _shift_ranges(orders, max_disp, spread, D)
+    lo, hi = _window_geom(ranges)
     vpad = _pad_folded(inp.to(wdtype), ishape, bounds, lo, hi, wdtype)
     outs = []
     for da in range(D):
-        ranges, coefs = _coef_fields(grid, orders, max_disp, wdtype,
-                                     deriv_axes=(da,))
+        coefs = _coef_fields(grid, orders, ranges, wdtype,
+                             deriv_axes=(da,))
         outs.append(_accumulate(vpad, ranges, coefs, lo, ishape))
     out = torch.stack(outs, dim=-1)
-    mask = inbounds_mask(grid, ishape, extrapolate, wdtype)
+    mask = _mask(grid, ishape, extrapolate, wdtype, orders, max_disp, spread)
     if mask is not None:
         out = out * mask[:, None, ..., None]
     return out
@@ -257,19 +319,22 @@ def _splat(acc, vals, ranges, coefs, lo, ishape):
         acc[tuple(idx)] += vals * w[:, None]
 
 
-def _push_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
+def _push_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp,
+                     spread=None):
     """Plain splat, the exact adjoint of :func:`_pull_impl_torch`:
     (B, C, *ishape) values at the grid sites -> (B, C, *ishape) volume.
     Masked values are zeroed before the splat; a site whose node origin
     leaves the window on some axis has a zero coefficient there and adds
-    nothing."""
+    nothing (in adaptive mode: is masked)."""
     D = grid.shape[-1]
     ishape = tuple(grid.shape[1:-1])
     wdtype = torch.promote_types(inp.dtype, grid.dtype)
-    lo, hi = _window_geom(orders, max_disp, D)
-    ranges, coefs = _coef_fields(grid, orders, max_disp, wdtype)
+    ranges = _shift_ranges(orders, max_disp, spread, D)
+    lo, hi = _window_geom(ranges)
+    coefs = _coef_fields(grid, orders, ranges, wdtype)
     vals = inp.to(wdtype)
-    mask = inbounds_mask(grid, ishape, extrapolate, wdtype)
+    mask = _mask(grid, ishape, extrapolate, wdtype, orders, max_disp, spread,
+                 push=True)
     if mask is not None:
         vals = vals * mask[:, None]
     pshape = tuple(n + l + h for n, l, h in zip(ishape, lo, hi))
@@ -309,7 +374,8 @@ def _shift_grid_x(grid_b, x0):
     return torch.cat([grid_b[..., :1] - x0, grid_b[..., 1:]], -1)
 
 
-def _pushgrad_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
+def _pushgrad_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp,
+                         spread=None):
     """Plain pushgrad, the exact adjoint of :func:`_grad_impl_torch`:
     (B, C, *ishape, D) cotangents of the spatial gradient -> (B, C,
     *ishape), each component splatted through the derivative coefficient
@@ -317,9 +383,11 @@ def _pushgrad_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
     D = grid.shape[-1]
     ishape = tuple(grid.shape[1:-1])
     wdtype = torch.promote_types(inp.dtype, grid.dtype)
-    lo, hi = _window_geom(orders, max_disp, D)
+    ranges = _shift_ranges(orders, max_disp, spread, D)
+    lo, hi = _window_geom(ranges)
     vals = inp.to(wdtype)
-    mask = inbounds_mask(grid, ishape, extrapolate, wdtype)
+    mask = _mask(grid, ishape, extrapolate, wdtype, orders, max_disp, spread,
+                 push=True)
     if mask is not None:
         vals = vals * mask[:, None, ..., None]
     pshape = tuple(n + l + h for n, l, h in zip(ishape, lo, hi))
@@ -330,20 +398,22 @@ def _pushgrad_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
         # the slab's padded box starts at x0 of the whole padded volume
         acc_b = acc[:, :, x0:x1 + lo[0] + hi[0]]
         for da in range(D):
-            ranges, coefs = _coef_fields(grid_b, orders, max_disp, wdtype,
-                                         deriv_axes=(da,))
+            coefs = _coef_fields(grid_b, orders, ranges, wdtype,
+                                 deriv_axes=(da,))
             _splat(acc_b, vals[:, :, x0:x1, ..., da], ranges, coefs, lo,
                    bshape)
     return _fold_pad_margins(acc, ishape, bounds, lo, hi, wdtype)
 
 
-def _hess_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
+def _hess_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp,
+                     spread=None):
     """Plain spatial Hessian of the spline surface: (B, C, *ishape) ->
     (B, C, *ishape, D, D), symmetric in the last two axes."""
     D = grid.shape[-1]
     ishape = tuple(inp.shape[-D:])
     wdtype = torch.promote_types(inp.dtype, grid.dtype)
-    lo, hi = _window_geom(orders, max_disp, D)
+    ranges = _shift_ranges(orders, max_disp, spread, D)
+    lo, hi = _window_geom(ranges)
     vpad = _pad_folded(inp.to(wdtype), ishape, bounds, lo, hi, wdtype)
     ax = vpad.ndim - D
     parts = []
@@ -356,8 +426,8 @@ def _hess_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
             for d2 in range(d, D):
                 kw = dict(deriv2_axis=d) if d == d2 \
                     else dict(deriv_axes=(d, d2))
-                ranges, coefs = _coef_fields(grid_b, orders, max_disp,
-                                             wdtype, **kw)
+                coefs = _coef_fields(grid_b, orders, ranges, wdtype,
+                                     **kw)
                 uniq[(d, d2)] = _accumulate(vpad_b, ranges, coefs, lo,
                                             bshape)
         rows = [torch.stack([uniq[(min(d, d2), max(d, d2))]
@@ -365,7 +435,7 @@ def _hess_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
                 for d in range(D)]
         parts.append(torch.stack(rows, dim=-2))
     out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=ax)
-    mask = inbounds_mask(grid, ishape, extrapolate, wdtype)
+    mask = _mask(grid, ishape, extrapolate, wdtype, orders, max_disp, spread)
     if mask is not None:
         out = out * mask[:, None, ..., None, None]
     return out
@@ -374,7 +444,7 @@ def _hess_impl_torch(inp, grid, orders, bounds, extrapolate, max_disp):
 # ------------------------------------------------------------ dispatch
 # A CPU tensor runs the plain version, a CUDA tensor the kernel (which
 # raises on what it does not take).  ``opts`` = (orders, bounds,
-# extrapolate, max_disp); ``grid`` is contiguous.
+# extrapolate, max_disp, spread); ``grid`` is contiguous.
 
 def _pull(inp, grid, opts):
     if inp.device.type == "cpu":
@@ -419,9 +489,15 @@ def _pushgrad(inp, grid, opts):
 # the channel axis under vmap; in this batch-first layout that is dim 1.
 # Each backward is composed from the Functions themselves, as the JAX rules
 # call the wrapped ops, so a second backward (create_graph=True) re-enters
-# the Functions and the kernels.  The grid is made contiguous once, before
-# the Function (``dense_flow`` returns a non-contiguous one), and saved as
-# it is; only the cotangents asked for are computed.
+# the Functions and the kernels.  Every rule passes ``spread`` on (the
+# "spread-aware adjoints"); each Function recomputes the tile bases from
+# the same grid, so the adjoints drop the taps the forward dropped.  The
+# grid is made contiguous once, before the Function (``dense_flow``
+# returns a non-contiguous one), and saved as it is; only the cotangents
+# asked for are computed.
+
+_NONE = (None,) * 5
+
 
 def _prepare(ctx, inp, grid, opts):
     ctx.opts = opts
@@ -433,8 +509,9 @@ class PullWindow(torch.autograd.Function):
     """pull; backward: d_inp = push(ct), d_grid = sum_c grad(inp) ct."""
 
     @staticmethod
-    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp):
-        opts = (orders, bounds, extrapolate, max_disp)
+    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp,
+                spread):
+        opts = (orders, bounds, extrapolate, max_disp, spread)
         return _pull(*_prepare(ctx, inp, grid, opts), opts)
 
     @staticmethod
@@ -447,15 +524,16 @@ class PullWindow(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             g = GradWindow.apply(inp, grid, *ctx.opts)
             d_grid = (g * ct[..., None]).sum(1).to(grid.dtype)
-        return d_inp, d_grid, None, None, None, None
+        return (d_inp, d_grid) + _NONE
 
 
 class PushWindow(torch.autograd.Function):
     """push; backward: d_inp = pull(ct), d_grid = sum_c grad(ct) inp."""
 
     @staticmethod
-    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp):
-        opts = (orders, bounds, extrapolate, max_disp)
+    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp,
+                spread):
+        opts = (orders, bounds, extrapolate, max_disp, spread)
         return _push(*_prepare(ctx, inp, grid, opts), opts)
 
     @staticmethod
@@ -468,7 +546,7 @@ class PushWindow(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             g = GradWindow.apply(ct, grid, *ctx.opts)
             d_grid = (g * inp[..., None]).sum(1).to(grid.dtype)
-        return d_inp, d_grid, None, None, None, None
+        return (d_inp, d_grid) + _NONE
 
 
 class GradWindow(torch.autograd.Function):
@@ -476,8 +554,9 @@ class GradWindow(torch.autograd.Function):
     hess(inp)_ij ct_i."""
 
     @staticmethod
-    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp):
-        opts = (orders, bounds, extrapolate, max_disp)
+    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp,
+                spread):
+        opts = (orders, bounds, extrapolate, max_disp, spread)
         return _grad(*_prepare(ctx, inp, grid, opts), opts)
 
     @staticmethod
@@ -490,7 +569,7 @@ class GradWindow(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             h = HessWindow.apply(inp, grid, *ctx.opts)
             d_grid = (h * ct[..., None]).sum((1, -2)).to(grid.dtype)
-        return d_inp, d_grid, None, None, None, None
+        return (d_inp, d_grid) + _NONE
 
 
 class PushgradWindow(torch.autograd.Function):
@@ -498,8 +577,9 @@ class PushgradWindow(torch.autograd.Function):
     hess(ct)_ij inp_i."""
 
     @staticmethod
-    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp):
-        opts = (orders, bounds, extrapolate, max_disp)
+    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp,
+                spread):
+        opts = (orders, bounds, extrapolate, max_disp, spread)
         return _pushgrad(*_prepare(ctx, inp, grid, opts), opts)
 
     @staticmethod
@@ -512,18 +592,22 @@ class PushgradWindow(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             h = HessWindow.apply(ct, grid, *ctx.opts)
             d_grid = (h * inp[..., None]).sum((1, -2)).to(grid.dtype)
-        return d_inp, d_grid, None, None, None, None
+        return (d_inp, d_grid) + _NONE
 
 
 class HessWindow(torch.autograd.Function):
     """hess; backward: the VJP of the plain ``_hess_impl_torch`` through
     PyTorch's autograd, on every device (the JAX rule, window.py:734-744).
     This is third-order territory: the JAX package runs its XLA
-    formulation there too, not a kernel."""
+    formulation there too, not a kernel.  In adaptive mode the VJP is that
+    of the adaptive plain Hessian (the function the forward computes); the
+    JAX rule takes its full-window XLA Hessian, the same function on grids
+    that honour the spread."""
 
     @staticmethod
-    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp):
-        opts = (orders, bounds, extrapolate, max_disp)
+    def forward(ctx, inp, grid, orders, bounds, extrapolate, max_disp,
+                spread):
+        opts = (orders, bounds, extrapolate, max_disp, spread)
         return _hess(*_prepare(ctx, inp, grid, opts), opts)
 
     @staticmethod
@@ -532,7 +616,7 @@ class HessWindow(torch.autograd.Function):
         wanted = [t for t, need in zip((inp, grid), ctx.needs_input_grad)
                   if need]
         if not wanted:
-            return None, None, None, None, None, None
+            return (None, None) + _NONE
         create = torch.is_grad_enabled()
         with torch.enable_grad():
             # differentiable leaves: the saved tensors themselves when a
@@ -548,14 +632,17 @@ class HessWindow(torch.autograd.Function):
             else None
         d_grid = grads.pop(0).to(grid.dtype) if ctx.needs_input_grad[1] \
             else None
-        return d_inp, d_grid, None, None, None, None
+        return (d_inp, d_grid) + _NONE
 
 
-def _apply(fn, inp, grid, orders, bounds, extrapolate, max_disp):
+def _apply(fn, inp, grid, orders, bounds, extrapolate, max_disp, spread):
     """Run a window Function on the contiguous grid (one copy when the
     caller's grid is not contiguous, differentiable)."""
+    D = grid.shape[-1]
+    if spread is not None:
+        spread = _md_tuple(spread, D)
     return fn.apply(inp, grid.contiguous(), tuple(orders), tuple(bounds),
-                    extrapolate, max_disp)
+                    extrapolate, max_disp, spread)
 
 
 def pull_window(inp, grid, orders, bounds, extrapolate, max_disp,
@@ -564,18 +651,19 @@ def pull_window(inp, grid, orders, bounds, extrapolate, max_disp,
 
     CPU tensors run the plain shift-FMA version; CUDA tensors the CUDA
     kernel (float32 only).  Differentiable in ``inp`` and ``grid``, to any
-    order.
-    ``spread`` is ignored (full window)."""
+    order.  ``spread``: the adaptive per-tile windows (module notes),
+    forward and every adjoint."""
     return _apply(PullWindow, inp, grid, orders, bounds, extrapolate,
-                  max_disp)
+                  max_disp, spread)
 
 
 def push_window(inp, grid, orders, bounds, extrapolate, max_disp,
                 spread=None):
     """Dense-grid splat, the exact adjoint of :func:`pull_window`:
-    (B, C, *ishape), (B, *ishape, D) -> (B, C, *ishape)."""
+    (B, C, *ishape), (B, *ishape, D) -> (B, C, *ishape).  ``spread``: the
+    adaptive windows over the push's tiles."""
     return _apply(PushWindow, inp, grid, orders, bounds, extrapolate,
-                  max_disp)
+                  max_disp, spread)
 
 
 def grad_window(inp, grid, orders, bounds, extrapolate, max_disp,
@@ -583,7 +671,7 @@ def grad_window(inp, grid, orders, bounds, extrapolate, max_disp,
     """Dense-grid spatial gradients of the spline surface:
     (B, C, *ishape), (B, *ishape, D) -> (B, C, *ishape, D)."""
     return _apply(GradWindow, inp, grid, orders, bounds, extrapolate,
-                  max_disp)
+                  max_disp, spread)
 
 
 def pushgrad_window(inp, grid, orders, bounds, extrapolate, max_disp,
@@ -591,7 +679,7 @@ def pushgrad_window(inp, grid, orders, bounds, extrapolate, max_disp,
     """Adjoint of :func:`grad_window`: (B, C, *ishape, D) cotangents ->
     (B, C, *ishape)."""
     return _apply(PushgradWindow, inp, grid, orders, bounds, extrapolate,
-                  max_disp)
+                  max_disp, spread)
 
 
 def hess_window(inp, grid, orders, bounds, extrapolate, max_disp,
@@ -600,4 +688,4 @@ def hess_window(inp, grid, orders, bounds, extrapolate, max_disp,
     (B, C, *ishape, D, D), symmetric.  Differentiable (third order, through
     the plain version)."""
     return _apply(HessWindow, inp, grid, orders, bounds, extrapolate,
-                  max_disp)
+                  max_disp, spread)

@@ -74,7 +74,9 @@ def test_not_ported_yet_raises():
         itt.grid_pull(img, grid, prefilter=True)
     with pytest.raises(NotImplementedError, match="label"):
         itt.grid_pull(img.long(), grid)
-    with pytest.raises(NotImplementedError, match="check_spread"):
-        itt.grid_grad(img, grid, max_disp=1.0, check_spread=True)
+    # check_spread is ported: it measures the grid and raises on a
+    # broken bound
+    with pytest.raises(RuntimeError, match="windowed-contract VIOLATED"):
+        itt.grid_grad(img, grid + 3.0, max_disp=1.0, check_spread=True)
     with pytest.raises(ValueError, match="tile_spread"):
         itt.grid_pull(img, grid, tile_spread=1.0)

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 dense warp's pull value / grad / hess (``csrc/warp.cu``), push and pushgrad
-(``csrc/push.cu``), the scattered gather (``csrc/gather.cu``) and splat
-(``csrc/splat.cu``), the autograd Functions (second order included) and
-the train steps on them.
+(``csrc/push.cu``), in plain and adaptive (``tile_spread``) mode, the
+scattered gather (``csrc/gather.cu``) and splat (``csrc/splat.cu``), the
+deterministic plain cores, the autograd Functions (second order included)
+and the train steps and the pyramid on them.
 
 Every test here is marked ``cuda`` and skips where there is no NVIDIA GPU
 (the kernels have no CPU mode).  The file imports no JAX, so it also runs on
@@ -14,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from interpol_tpu_torch import (SVFModel, WarpModel, grid_grad, grid_pull,
-                                grid_push, svf_mse_loss)
+from interpol_tpu_torch import (PyramidModel, SVFModel, WarpModel,
+                                grid_grad, grid_pull, grid_push, register,
+                                svf_mse_loss)
 from interpol_tpu_torch.ops import cuda_scattered, cuda_warp
 from interpol_tpu_torch.ops import ndkernels as nd
 from interpol_tpu_torch.ops import pushpull as tpp
@@ -322,3 +324,98 @@ def test_scattered_wrappers_refuse(cuda_device):
                                    *opts)
     out = tpp.pull(inp.clone().requires_grad_(), grid, *opts)
     assert out.requires_grad
+
+
+# adaptive mode: orders, bounds, extrapolate, ishape, max_disp, tile_spread,
+# displacement of the grid (far beyond the spread: taps are dropped)
+AD_CASES = [
+    ((3, 3, 3), (3, 3, 3), 1, (20, 17, 140), 2.0, 0.5, 2.0),
+    ((1, 1, 1), (6, 6, 6), 0, (17, 9, 12), 1.5, (0.5, 1.0, 0.2), 1.5),
+    ((5, 0, 3), (4, 1, 2), 2, (16, 10, 30), 2.0, 1.0, 2.0),
+    ((3, 1), (3, 0), 1, (30, 140), 2.0, 0.5, 2.0),          # 2-D
+    ((3,), (6,), 1, (300,), 2.0, 0.5, 2.0),                 # 1-D
+    # wide: max_disp 8, a residual window of span 13 (> 12)
+    ((3, 3, 3), (3, 3, 3), 1, (20, 18, 24), 8.0, 4.5, 8.0),
+]
+
+
+@pytest.mark.parametrize("orders,bounds,ex,ish,md,sp,disp", AD_CASES)
+def test_adaptive_kernels_match_plain(cuda_device, orders, bounds, ex, ish,
+                                      md, sp, disp):
+    inp, grid = warp_case(cuda_device, ish, disp=disp, B=2)
+    grid[0, :8] += 1.0          # tiles with different bases
+    ct = torch.randn(inp.shape + (len(ish),), device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(0))
+    opts = (orders, bounds, ex, md, sp)
+    before = dict(cuda_warp.LAUNCHES_BY_MODE)
+    val, g = cuda_warp.warp_cuda(inp, grid, *opts, value=True, grad=True)
+    v1 = cuda_warp.warp_cuda(inp, grid, *opts, value=True)[0]
+    h = cuda_warp.hess_cuda(inp, grid, *opts)
+    p = cuda_warp.push_cuda(inp, grid, *opts)
+    pg = cuda_warp.push_cuda(ct, grid, *opts, deriv=True)
+    for mode in ("value_ad", "value+grad_ad", "hess_ad", "push_ad",
+                 "pushgrad_ad"):
+        assert cuda_warp.LAUNCHES_BY_MODE[mode] == before[mode] + 1
+    assert torch.equal(val, v1)
+    assert_close(val, tw._pull_impl_torch(inp, grid, *opts))
+    assert_close(g, tw._grad_impl_torch(inp, grid, *opts))
+    assert_close(h, tw._hess_impl_torch(inp, grid, *opts))
+    assert_close(p, tw._push_impl_torch(inp, grid, *opts))
+    assert_close(pg, tw._pushgrad_impl_torch(ct, grid, *opts))
+    # the spread is broken: taps were dropped
+    full = cuda_warp.warp_cuda(inp, grid, *opts[:4])[0]
+    assert (val - full).abs().max() > 1e-3
+    # race-free: the adaptive splats give the same bits on a second run
+    assert torch.equal(cuda_warp.push_cuda(inp, grid, *opts), p)
+    assert torch.equal(cuda_warp.push_cuda(ct, grid, *opts, deriv=True), pg)
+
+
+def test_wide_window_one_launch(cuda_device):
+    """max_disp=8 at cubic order (span 20, the TPU chunks it): one launch
+    of each kernel matches the plain version."""
+    inp, grid = warp_case(cuda_device, (21, 20, 26), disp=8.0, B=1)
+    opts = ((3, 3, 3), (3, 3, 3), 1, 8.0)
+    before = cuda_warp.LAUNCHES
+    val, g = cuda_warp.warp_cuda(inp, grid, *opts, value=True, grad=True)
+    p = cuda_warp.push_cuda(inp, grid, *opts)
+    assert cuda_warp.LAUNCHES == before + 2
+    assert_close(val, tw._pull_impl_torch(inp, grid, *opts))
+    assert_close(g, tw._grad_impl_torch(inp, grid, *opts))
+    assert_close(p, tw._push_impl_torch(inp, grid, *opts))
+
+
+def test_plain_push_is_deterministic_on_the_card(cuda_device):
+    """D = 4 takes the plain cores on every device; many points per voxel
+    give the same bits on every run."""
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    grid = torch.rand((2, 20000, 4), device=cuda_device, generator=gen) \
+        * torch.tensor([3.0, 4.0, 2.0, 3.0], device=cuda_device)
+    vals = torch.randn((2, 3, 20000), device=cuda_device, generator=gen)
+    first = grid_push(vals[..., None, None, None],
+                      grid[:, :, None, None, None], shape=(4, 5, 3, 4),
+                      interpolation=1, bound="dct2")
+    for _ in range(3):
+        assert torch.equal(grid_push(vals[..., None, None, None],
+                                     grid[:, :, None, None, None],
+                                     shape=(4, 5, 3, 4), interpolation=1,
+                                     bound="dct2"), first)
+    assert_close(first, nd.push_core(vals.cpu(), grid.cpu(), (4, 5, 3, 4),
+                                     (1,) * 4, (3,) * 4, 0).to(first))
+
+
+def test_register_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(5)
+    vol = (16, 12, 16)
+    moving = rng.standard_normal((1, 1) + vol)
+    fixed = np.roll(moving, 1, axis=4)
+    out = []
+    for device in (cuda_device, "cpu"):
+        model = PyramidModel(vol, (3, 3, 3), levels=2, interpolation=3,
+                             max_disp=2.0, steps_per_level=4,
+                             tile_spread="auto", device=device)
+        kw = dict(dtype=torch.float32, device=device)
+        params, losses = register(model, torch.as_tensor(moving, **kw),
+                                  torch.as_tensor(fixed, **kw), lr=1.0)
+        out.append((params.cpu(), losses.cpu()))
+    for a, b in zip(*out):
+        assert_close(a, b, STEP_TOL)
