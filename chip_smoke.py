@@ -48,7 +48,11 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    every splat equal across runs, ``grid_sample`` as the library yardstick
    at order 1; each adaptive mode beside its full-window mode on P8's flow
    at 256^3 (``max_disp=4``, and value / push at ``max_disp=8``), held to
-   its plain version and to the full window; the device busy time, idle
+   its plain version and to the full window; a torch.profiler breakdown
+   of one scattered splat (sc_push of 1M points at order 1 and cubic,
+   P7's 16.7M) into its pieces (elementwise key passes, sort,
+   index_select, searchsorted, the outliers' sync, patch kernel, overlap
+   fold, outlier taps, segsum); the device busy time, idle
    share and heaviest kernels of the two train steps and of one 256^3
    pyramid level (torch.profiler).
 
@@ -1413,6 +1417,77 @@ def phase_adaptive_times(card, errs, ad, train) -> dict:
     return times
 
 
+# the pieces of one scattered splat, by device kernel name (lower case);
+# "sort" is the box sort and, when a cloud has outliers, their pair sort
+SPLAT_PIECES = (("patch kernel", ("splat_patch_kernel",)),
+                ("overlap fold", ("overlap_fold",)),
+                ("outlier taps", ("outlier_taps",)),
+                ("segsum", ("segsum",)),
+                ("searchsorted", ("searchsorted",)),
+                ("sort", ("radixsort", "sort")),
+                ("index_select", ("index", "gather")))
+
+
+def splat_piece(name: str) -> str:
+    low = name.lower()
+    for piece, keys in SPLAT_PIECES:
+        if any(k in low for k in keys):
+            return piece
+    return "elementwise (keys, mask, lift, rows, zero)"
+
+
+def phase_splat_profile(card, sc) -> None:
+    """torch.profiler breakdown of one scattered splat (sc_push) at P5's
+    shapes, order 1 and cubic, and of P7's dense splat: device time per
+    piece, the host's wait in the outliers' sync (cudaStreamSynchronize
+    of the ``.tolist()``), wall time and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    N, P = SC_N, SC_P
+    pts, vals = sc["pts"].reshape(1, P, 3), sc["vals"].reshape(1, 1, P)
+    grid7 = affine_grid(sc["mat"], (N,) * 3).reshape(1, -1, 3)
+    ct7 = cotangent((1, 1, N ** 3), 52)
+    for name, fn in [
+            ("sc_push 1M points in 256^3, order 1, dct2, extrapolate",
+             lambda: splat_kernel(vals, pts, (N,) * 3,
+                                  ((1,) * 3, (3,) * 3, 1), "sc_push")),
+            ("sc_push 1M points in 256^3, cubic, dct2, extrapolate",
+             lambda: splat_kernel(vals, pts, (N,) * 3, SC_OPTS, "sc_push")),
+            ("P7 reslice splat, 256^3 points onto 256^3, cubic, dct2",
+             lambda: splat_kernel(ct7, grid7, (N,) * 3,
+                                  ((3,) * 3, (3,) * 3, 0), "sc_push"))]:
+        reps = 5
+        with torch.no_grad():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / reps * 1e3
+        pieces, busy, wait = {}, 0.0, 0.0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ms = e.self_device_time_total / reps / 1e3
+                piece = splat_piece(e.key)
+                pieces[piece] = pieces.get(piece, 0.0) + ms
+                busy += ms
+            elif e.key == "cudaStreamSynchronize":
+                wait += e.cpu_time_total / reps / 1e3
+        if busy == 0:
+            log(f"splat profile {name}: no device time in the trace (not "
+                f"measured)")
+            continue
+        log(f"splat profile {name}: wall {wall:.3f} ms per call (profiler "
+            f"on), device busy {busy:.3f} ms, idle "
+            f"{100 * (1 - busy / wall):.1f} %, host waits {wait:.3f} ms in "
+            f"cudaStreamSynchronize (the outliers' .tolist()); device ms: "
+            + "; ".join(f"{k} {v:.4f}" for k, v in
+                        sorted(pieces.items(), key=lambda kv: -kv[1]))
+            + f" [{card}]")
+
+
 def short(kernel_name: str) -> str:
     for prefix in ("void ", "(anonymous namespace)::", "at::native::"):
         kernel_name = kernel_name.replace(prefix, "")
@@ -1493,6 +1568,7 @@ def main() -> None:
     times.update(phase_adaptive_times(card, errs, ad, train))
     lap("adaptive times")
     phase_library(card, main_path, sc)
+    phase_splat_profile(card, sc)
     phase_profile(train, ad)
     lap("library and profile")
     missing = [m for m in ALL_MODES if drive.total[m] == 0]

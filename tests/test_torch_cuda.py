@@ -274,6 +274,76 @@ def test_push_kernels_are_deterministic(cuda_device):
                                first)
 
 
+# the race-free splat (csrc/patch_splat.cuh): orders 0-7 over the bounds,
+# B=2, C=3; odd shapes (several 8^3 site tiles), a shape under one tile,
+# dft with odd tile counts (3 along y and z), max_disp 0 and 8, adaptive,
+# 2-D
+DENSE_SPLATS = [
+    ((0, 0, 0), (0, 0, 0), 1, (19, 21, 37), 1.5, None),
+    ((1, 1, 1), (1, 1, 1), 0, (5, 7, 9), 1.5, None),
+    ((2, 2, 2), (2, 2, 2), 2, (19, 21, 37), 0.0, None),
+    ((3, 3, 3), (6, 6, 6), 1, (48, 20, 17), 2.0, None),
+    ((4, 4, 4), (4, 4, 4), 1, (17, 18, 19), 1.0, None),
+    ((5, 5, 5), (5, 5, 5), 0, (20, 9, 33), 1.0, None),
+    ((6, 6, 6), (3, 0, 6), 1, (11, 12, 13), 0.5, None),
+    ((7, 7, 7), (6, 5, 4), 2, (9, 10, 11), 1.0, None),
+    ((3, 3, 3), (3, 3, 3), 1, (20, 18, 24), 8.0, None),
+    ((3, 3, 3), (3, 3, 3), 1, (20, 17, 40), 2.0, 0.5),
+    ((1, 3, 1), (6, 3, 6), 0, (33, 18, 35), 2.0, (1.0, 0.5, 1.0)),
+    ((1, 3), (6, 3), 1, (33, 18), 2.0, None),
+]
+
+
+@pytest.mark.parametrize("orders,bounds,ex,ish,md,sp", DENSE_SPLATS)
+def test_dense_splat_matches_plain_and_repeats(cuda_device, orders, bounds,
+                                               ex, ish, md, sp):
+    # max_disp 0: displacements of 0.5 break it (taps are dropped)
+    inp, grid = warp_case(cuda_device, ish, C=3, disp=md or 0.5, B=2)
+    if sp is not None:
+        grid[0, :8] += 1.0          # tiles with different bases
+    ct = torch.randn(inp.shape + (len(ish),), device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(4))
+    opts = (orders, bounds, ex, md, sp)
+    for args, kw, plain in [((inp,), {}, tw._push_impl_torch),
+                            ((ct,), dict(deriv=True),
+                             tw._pushgrad_impl_torch)]:
+        out = cuda_warp.push_cuda(*args, grid, *opts, **kw)
+        assert_close(out, plain(*args, grid, *opts))
+        assert torch.equal(cuda_warp.push_cuda(*args, grid, *opts, **kw),
+                           out)
+
+
+# orders 0-7 over the bounds, B=2, C=3, points outside both ends of every
+# axis (sc_case), boxes of 16^3 and 8^3 (a dense cloud), odd shapes
+SCATTERED_SPLATS = [
+    ((0, 0, 0), (0, 1, 2), 1, (19, 21, 37), 3000),
+    ((1, 1, 1), (3, 4, 5), 0, (5, 7, 9), 400),
+    ((2, 2, 2), (6, 0, 1), 2, (17, 18, 19), 9000),
+    ((3, 3, 3), (6, 6, 6), 1, (48, 20, 17), 2000),
+    ((4, 5, 6), (2, 3, 4), 1, (11, 12, 13), 800),
+    ((7, 7, 7), (5, 6, 0), 0, (9, 10, 11), 300),
+    ((3, 1), (6, 4), 2, (33, 18), 700),
+]
+
+
+@pytest.mark.parametrize("orders,bounds,ex,ish,P", SCATTERED_SPLATS)
+def test_scattered_splat_matches_plain_and_repeats(cuda_device, orders,
+                                                   bounds, ex, ish, P):
+    _, grid = sc_case(cuda_device, ish, P, C=3, seed=5)
+    D = len(ish)
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    opts = (orders, bounds, ex)
+    for k, (spec, core) in enumerate([("push", nd.push_core),
+                                      ("pushgrad", nd.pushgrad_core),
+                                      ("pushhess", nd.pushhess_core)]):
+        vals = torch.randn((2, 3, P) + (D,) * k, device=cuda_device,
+                           generator=gen)
+        out = cuda_scattered.splat_cuda(vals, grid, ish, *opts, spec=spec)
+        assert_close(out, core(vals, grid, ish, *opts))
+        assert torch.equal(cuda_scattered.splat_cuda(vals, grid, ish, *opts,
+                                                     spec=spec), out)
+
+
 def _second_order(device, op):
     """Gradient in (inp, grid) of sum(d_inp) + sum(d_grid), the first
     derivatives of sum(op**2) built with create_graph=True."""
