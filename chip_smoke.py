@@ -46,7 +46,8 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    versions on the same inputs;
 6. times and peak memory beside the card's name and power limit, push and
    every splat equal across runs, ``grid_sample`` as the library yardstick
-   at order 1; each adaptive mode beside its full-window mode on P8's flow
+   at order 1 (its output for value, its input gradient for push, its grid
+   gradient for the spatial gradient); each adaptive mode beside its full-window mode on P8's flow
    at 256^3 (``max_disp=4``, and value / push at ``max_disp=8``), held to
    its plain version and to the full window; a torch.profiler breakdown
    of one scattered splat (sc_push of 1M points at order 1 and cubic,
@@ -1067,13 +1068,16 @@ def phase_sc_times(card, errs, sc) -> dict:
     return times
 
 
-def phase_library(card, main, sc) -> None:
+def phase_library(card, main, sc) -> dict:
     """The one PyTorch call that computes the same function where there is
     one: at order 1, bound zero, extrapolate, F.grid_sample (5-D bilinear,
-    align_corners, zeros) is pull and its input gradient is push.  Each is
-    held to the plain version on the coordinates it computes with (it
-    rounds voxel coordinates through [-1, 1] in float32, ~1e-5 voxel at
-    256), then timed beside the kernel at order 1."""
+    align_corners, zeros) is pull, its input gradient is push, and its
+    grid gradient, rescaled from [-1, 1] to voxels (times 2 / (n - 1) per
+    axis) and flipped to (x, y, z), is the spatial gradient.  Each is held
+    to the plain version on the coordinates it computes with (it rounds
+    voxel coordinates through [-1, 1] in float32, ~1e-5 voxel at 256),
+    then timed beside the kernel at order 1.  Returns {mode: (library ms,
+    kernel ms at order 1)}."""
     import torch.nn.functional as F
 
     def normalized(g, shape):
@@ -1093,25 +1097,51 @@ def phase_library(card, main, sc) -> None:
     dense_g, dense_at = normalized(flow, MAIN_VOL)
     cloud_g, cloud_at = normalized(pts, (N,) * 3)
     cloud_g = cloud_g.reshape(1, 1, 1, P, 3)
+    # (mode, name, image, normalized grid, cotangent or "grid" for the
+    # grid gradient, kernel, plain at voxel coordinates, the coordinates
+    # grid_sample samples at, the volume shape)
     rows = [
-        ("dense pull (warp value)", moving, dense_g, None,
+        ("value", "dense pull (warp value)", moving, dense_g, None,
          lambda: cuda_warp.warp_cuda(moving, flow, *o1, 4.0)[0],
          lambda g: _pull_impl_torch(moving, g, *o1, 4.0), dense_at),
-        ("dense push", moving, dense_g, moving,
+        ("grad", "dense spatial gradient (warp grad)", moving, dense_g,
+         "grid",
+         lambda: cuda_warp.warp_cuda(moving, flow, *o1, 4.0, value=False,
+                                     grad=True)[1],
+         lambda g: _grad_impl_torch(moving, g, *o1, 4.0), dense_at),
+        ("push", "dense push", moving, dense_g, moving,
          lambda: cuda_warp.push_cuda(moving, flow, *o1, 4.0),
          lambda g: _push_impl_torch(moving, g, *o1, 4.0), dense_at),
-        ("scattered pull (sc_value)", vol, cloud_g, None,
+        ("sc_value", "scattered pull (sc_value)", vol, cloud_g, None,
          lambda: gather_kernel(vol, pts, o1, "sc_value")[0],
          lambda g: ndkernels.pull_core(vol, g, *o1), cloud_at),
-        ("scattered push (sc_push)", vol, cloud_g, vals,
+        ("sc_grad", "scattered spatial gradient (sc_grad)", vol, cloud_g,
+         "grid", lambda: gather_kernel(vol, pts, o1, "sc_grad")[0],
+         lambda g: ndkernels.grad_core(vol, g, *o1), cloud_at),
+        ("sc_push", "scattered push (sc_push)", vol, cloud_g, vals,
          lambda: splat_kernel(vals, pts, (N,) * 3, o1, "sc_push"),
          lambda g: ndkernels.push_core(vals, g, (N,) * 3, *o1), cloud_at)]
-    for name, inp, g, ct, kern, plain, lib_at in rows:
+    out_ms = {}
+    for mode, name, inp, g, ct, kern, plain, lib_at in rows:
         if ct is None:
             def lib(inp=inp, g=g):
                 return F.grid_sample(inp, g, mode="bilinear",
                                      padding_mode="zeros",
                                      align_corners=True)
+        elif isinstance(ct, str):
+            # d out / d voxel coordinate: the grid gradient of each
+            # sample's own output (C=1) times 2 / (n - 1), axes flipped
+            gleaf = g.detach().clone().requires_grad_()
+            out = F.grid_sample(inp, gleaf, mode="bilinear",
+                                padding_mode="zeros", align_corners=True)
+            ones = torch.ones_like(out)
+            scale = torch.tensor([2 / (n - 1) for n in inp.shape[2:]],
+                                 device=DEV)
+
+            def lib(out=out, gleaf=gleaf, ones=ones, scale=scale):
+                dg = torch.autograd.grad(out, gleaf, ones,
+                                         retain_graph=True)[0]
+                return dg.flip(-1) * scale
         else:
             leaf = inp.detach().clone().requires_grad_()
             out = F.grid_sample(leaf, g, mode="bilinear",
@@ -1131,9 +1161,11 @@ def phase_library(card, main, sc) -> None:
                                      f"{e_lib:.3g}, kernel err {e_k:.3g}")
             del ref, ref_lib
             l_ms, k_ms = cuda_ms(lib, 10), cuda_ms(kern, 10)
+        out_ms[mode] = (l_ms, k_ms)
         log(f"library {name}, order 1 zero extrapolate: grid_sample "
             f"{l_ms:.3f} ms (err vs plain {e_lib:.3g}), kernel {k_ms:.3f} "
             f"ms (err {e_k:.3g}), median of 10 [{card}]")
+    return out_ms
 
 
 # ------------------------------------------------------------ adaptive
@@ -1567,7 +1599,7 @@ def main() -> None:
     lap("scattered times")
     times.update(phase_adaptive_times(card, errs, ad, train))
     lap("adaptive times")
-    phase_library(card, main_path, sc)
+    library = phase_library(card, main_path, sc)
     phase_splat_profile(card, sc)
     phase_profile(train, ad)
     lap("library and profile")
@@ -1590,7 +1622,8 @@ def main() -> None:
                 "source": f"interpol_tpu_torch/csrc/{src_}",
                 "replaces": f"interpol_tpu/ops/{line}",
                 "launches": drive.total[m], "max_abs_err": errs[m],
-                **times[m], "library_ms": None}
+                **times[m], "library_ms": library.get(m, (None,))[0],
+                "kernel_ms_order1": library.get(m, (None, None))[1]}
     kernels = [row(m) for m in ALL_MODES]
     log(f"total run time {time.perf_counter() - t0:.1f} s")
     log(card)

@@ -10,25 +10,31 @@
 // 12^3 = 1728 FMA per voxel, this one (3+1)^3 = 64 taps.
 //
 // Design:
-//   - one thread per output voxel of (B, X, Y, Z), z fastest, so the
-//     threads of a warp read neighbouring addresses;
-//   - per axis, the node origin and the taps' weights (and first and
-//     second derivatives) come from the same Cox-de Boor recursion as
-//     ops/splines.py, in registers (spline_taps.cuh, shared with the
-//     splat kernel of push.cu);
-//   - each tap index is folded through the boundary condition in-kernel
-//     (ops/bounds.py): no padded copy of the volume; the fold's sign is
-//     folded into the axis weights;
+//   - one thread per output voxel of (B, X, Y, Z); a block is a 3-D tile
+//     of voxels, z fastest (32 z x 4 y x 2 x at 256^3; the extents are
+//     powers of two chosen by ops/cuda_warp.py::warp_block), lying inside
+//     one (8, 8, 128) TPU tile.  Neighbouring voxels read overlapping tap
+//     rows, so a block's (order+1)^2 rows per voxel come into one SM's L1
+//     together, where a block of one z-row fetched its rows alone;
+//   - the tap setup per axis is the gathers' lean one (spline_taps.cuh):
+//     node origin, closed-form weights (and first and second derivatives)
+//     at orders 0-3, the recursion with constant reciprocals above; an
+//     interior axis (all taps inside with sign 1) takes its taps unfolded,
+//     the rest are folded through the boundary condition in-kernel
+//     (ops/bounds.py) with the fold's sign in the weights: no padded copy
+//     of the volume; tap offsets are 32-bit within a plane;
+//   - interior z taps are read at immediate offsets from one address,
+//     folded ones at their offsets; from order 2 a warp takes one of the
+//     two loops for all its voxels (spline_taps.cuh::contiguous_z);
 //   - the window semantics are reproduced exactly: a sample whose node
 //     origin offset d0 = n0 - p lies outside [d0min, d0max] on some axis
 //     gets no tap there and reads 0, as in window._coef_fields;
 //   - mode 1d, adaptive (pallas_warp.py:172-235): the test becomes
 //     d0 - base in [d0min, d0max] of the residual window, with the base of
-//     the voxel's (8, 8, 128) TPU tile from three int32 arrays
-//     (WarpParams.base, computed once per call by ops/tiles.py).  A runtime
-//     branch, uniform over a tile, shared by value, grad and hess: no
-//     template of its own.  The gather reads the same (order+1)^3 taps in
-//     both modes; only the test moves;
+//     the block's (8, 8, 128) TPU tile (WarpParams.base, computed once per
+//     call by ops/tiles.py), loaded once per thread from the block's
+//     origin.  A runtime branch shared by value, grad and hess: no
+//     template of its own;
 //   - the TPU kernel's chunked mode (active / d0_ranges: sub-windows under
 //     the 16 MB VMEM cap, whose launches sum) needs no code here: the
 //     gather keeps no window-sized state, so one launch takes any window
@@ -44,13 +50,13 @@
 //     the second-derivative weights; xy, xz, yz from products of first
 //     derivatives), and writes the full symmetric 3x3 (JAX's layout).
 //
-// What bounds it on this card: the scattered tap reads, (order+1)^3 x C per
-// voxel (64 x C at cubic order), served mostly from L1/L2 when the warp is
-// smooth (neighbouring voxels read overlapping taps).  The arithmetic is
-// ~2 FMA per tap (~7 in hess mode).  The launch bounds keep enough warps
-// resident to hide the read latency.  Shared-memory tiles of the volume and
-// TMA loads are the speed work of later changes; this kernel is the
-// simple, right one.
+// What bounds it on this card: instructions and L1 traffic per sample more
+// than bytes.  The taps, (order+1)^3 x C per voxel (64 x C at cubic
+// order), come mostly from L1/L2 when the warp is smooth.  A tap setup
+// with an IEEE division per recursion term, a switch and modulos per tap
+// and 64-bit offsets costs more instructions than the taps themselves;
+// the lean one here halves the kernel's time at cubic order (PERF.md).
+// The launch bounds keep enough warps resident to hide the read latency.
 //
 // C interface (loaded with ctypes by ops/cuda_warp.py):
 //   int interpol_warp(const float* inp, const float* grid, float* val,
@@ -59,122 +65,91 @@
 //                     void* stream);
 // inp (B, C, X, Y, Z), grid (B, X, Y, Z, 3), val (B, C, X, Y, Z),
 // grad (B, C, X, Y, Z, 3), hess (B, C, X, Y, Z, 3, 3); all float32,
-// contiguous.  Hess runs alone; value and grad alone or together.
-// Returns the cudaError_t of the launch (0 on success).
+// contiguous; Y * Z < 2^31.  Hess runs alone; value and grad alone or
+// together.  Returns the cudaError_t of the launch (0 on success).
 
 #include "spline_taps.cuh"
 
 namespace {
 
-// NT = largest order + 1 over the three axes (taps per axis, 1..8).
-// Three resident blocks per SM cap the registers at 85 a thread: without
-// the cap ptxas hoists the 64 cubic tap loads into ~200 registers, one
-// block fits per SM, and the kernel runs 2.7-3.4x slower (H100, 256^3).
+// NT = largest order + 1 over the three axes (taps per axis, 1..8); the
+// launch bounds are the gathers' (spline_taps.cuh::gather_blocks).
 template <int NT, bool VAL, bool GRAD, bool HESS>
-__global__ void __launch_bounds__(256, 3)
+__global__ void __launch_bounds__(256, (gather_blocks<NT, HESS>(true)))
     warp_kernel(const float* __restrict__ inp, const float* __restrict__ grid,
                 float* __restrict__ val, float* __restrict__ grd,
                 float* __restrict__ hes, const WarpParams p) {
   constexpr bool D1 = GRAD || HESS;  // first-derivative taps needed
   const int X = p.shape[0], Y = p.shape[1], Z = p.shape[2];
-  const long long nvox = (long long)X * Y * Z;
-  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= p.B * nvox) return;
-  const long long b = v / nvox;
-  const long long r = v - b * nvox;
-  const int z = (int)(r % Z);
-  const long long xy = r / Z;
-  const int y = (int)(xy % Y);
-  const int x = (int)(xy / Y);
+  // the block's tile: blockIdx.x runs over (y, z) tiles, z fastest,
+  // blockIdx.y over x tiles, blockIdx.z over the batch; threadIdx.x runs
+  // over the tile, z fastest
+  const int lx = p.block[0], ly = p.block[1], lz = p.block[2];
+  const int nbz = (Z + (1 << lz) - 1) >> lz;
+  const int ky = blockIdx.x / nbz;
+  const int x0 = blockIdx.y << lx, y0 = ky << ly,
+            z0 = (blockIdx.x - ky * nbz) << lz;
+  const long long b = blockIdx.z;
+  // the window test's shift: the base of the block's TPU tile (adaptive
+  // mode), 0 in the plain mode
+  int sh[3] = {0, 0, 0};
+  if (p.base[0] != nullptr) {
+    const long long tl =
+        ((b * p.ntile[0] + x0 / p.tile[0]) * p.ntile[1] + y0 / p.tile[1]) *
+            p.ntile[2] +
+        z0 / p.tile[2];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) sh[d] = __ldg(p.base[d] + tl);
+  }
+  const int t = threadIdx.x;
+  const int x = x0 + (t >> (lz + ly));
+  const int y = y0 + ((t >> lz) & ((1 << ly) - 1));
+  const int z = z0 + (t & ((1 << lz) - 1));
+  if (x >= X || y >= Y || z >= Z) return;
+  const int YZ = Y * Z;
+  const long long nvox = (long long)X * YZ;
+  const long long r = (long long)x * YZ + y * Z + z;
+  const long long v = b * nvox + r;
   const float gx = grid[3 * v], gy = grid[3 * v + 1], gz = grid[3 * v + 2];
 
-  bool keep = true;
-  if (p.masked) {
-    keep = gx > p.thr_lo && gx < p.thr_hi[0] && gy > p.thr_lo &&
-           gy < p.thr_hi[1] && gz > p.thr_lo && gz < p.thr_hi[2];
-  }
-  long long ox[NT], oy[NT], oz[NT];
-  float wx[NT], wy[NT], wz[NT], dx[NT], dy[NT], dz[NT];
-  float hx[NT], hy[NT], hz[NT];
-  unsigned lx, ly, lz;  // the gather reads sign-0 taps with weight 0
-  int sh[3];            // the window test's shift (adaptive mode)
-  tile_shift(p, b, x, y, z, sh);
-  keep = keep &&
-         axis_taps<NT, D1, HESS>(gx, x, X, p.order[0], p.bound[0],
-                                 p.d0min[0] + sh[0], p.d0max[0] + sh[0],
-                                 (long long)Y * Z, ox, wx, dx, hx, lx) &&
-         axis_taps<NT, D1, HESS>(gy, y, Y, p.order[1], p.bound[1],
-                                 p.d0min[1] + sh[1], p.d0max[1] + sh[1],
-                                 (long long)Z, oy, wy, dy, hy, ly) &&
-         axis_taps<NT, D1, HESS>(gz, z, Z, p.order[2], p.bound[2],
-                                 p.d0min[2] + sh[2], p.d0max[2] + sh[2], 1LL,
-                                 oz, wz, dz, hz, lz);
+  bool keep = !p.masked || inside(gx, gy, gz, p.thr_lo, p.thr_hi);
   const int ordx = p.order[0], ordy = p.order[1], ordz = p.order[2];
-
+  const float nx = node_origin(gx, ordx), ny = node_origin(gy, ordy),
+              nz = node_origin(gz, ordz);
+  const float d0[3] = {nx - (float)x, ny - (float)y, nz - (float)z};
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    // written so that a NaN coordinate fails the test
+    keep = keep && d0[d] >= (float)(p.d0min[d] + sh[d]) &&
+           d0[d] <= (float)(p.d0max[d] + sh[d]);
+  }
+  TapAxis<NT> ax, ay, az;
+  bool zin = false;
+  long long ox[NT];
+  int oy[NT];
+  if (keep) {
+    tap_axis<NT, D1, HESS>(gx, nx, X, ordx, p.bound[0], ax);
+    tap_axis<NT, D1, HESS>(gy, ny, Y, ordy, p.bound[1], ay);
+    zin = tap_axis<NT, D1, HESS>(gz, nz, Z, ordz, p.bound[2], az);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      ox[j] = (long long)ax.idx[j] * YZ;
+      oy[j] = ay.idx[j] * Z;
+    }
+  }
+  const bool contig = contiguous_z<NT>(zin, keep);
   for (long long c = 0; c < p.C; ++c) {
     const long long base = (b * p.C + c) * nvox;  // 64-bit (b, c) offset
-    float acc = 0.f, ax = 0.f, ay = 0.f, az = 0.f;
-    float hxx = 0.f, hyy = 0.f, hzz = 0.f, hxy = 0.f, hxz = 0.f, hyz = 0.f;
+    TapSums s;
     if (keep) {
-      const float* vol = inp + base;
-#pragma unroll
-      for (int jx = 0; jx < NT; ++jx) {
-        if (jx > ordx) break;
-        float yv = 0.f, ydy = 0.f, ydz = 0.f;
-        float yhy = 0.f, yhz = 0.f, ydydz = 0.f;
-#pragma unroll
-        for (int jy = 0; jy < NT; ++jy) {
-          if (jy > ordy) break;
-          const float* row = vol + ox[jx] + oy[jy];
-          float zv = 0.f, zd = 0.f, zh = 0.f;
-#pragma unroll
-          for (int jz = 0; jz < NT; ++jz) {
-            if (jz > ordz) break;
-            const float s = __ldg(row + oz[jz]);
-            zv = fmaf(wz[jz], s, zv);
-            if (D1) zd = fmaf(dz[jz], s, zd);
-            if (HESS) zh = fmaf(hz[jz], s, zh);
-          }
-          yv = fmaf(wy[jy], zv, yv);
-          if (D1) {
-            ydy = fmaf(dy[jy], zv, ydy);
-            ydz = fmaf(wy[jy], zd, ydz);
-          }
-          if (HESS) {
-            yhy = fmaf(hy[jy], zv, yhy);
-            yhz = fmaf(wy[jy], zh, yhz);
-            ydydz = fmaf(dy[jy], zd, ydydz);
-          }
-        }
-        if (VAL) acc = fmaf(wx[jx], yv, acc);
-        if (GRAD) {
-          ax = fmaf(dx[jx], yv, ax);
-          ay = fmaf(wx[jx], ydy, ay);
-          az = fmaf(wx[jx], ydz, az);
-        }
-        if (HESS) {
-          hxx = fmaf(hx[jx], yv, hxx);
-          hyy = fmaf(wx[jx], yhy, hyy);
-          hzz = fmaf(wx[jx], yhz, hzz);
-          hxy = fmaf(dx[jx], ydy, hxy);
-          hxz = fmaf(dx[jx], ydz, hxz);
-          hyz = fmaf(wx[jx], ydydz, hyz);
-        }
-      }
+      if (contig)
+        gather_taps<NT, VAL, GRAD, HESS, kZContig>(
+            inp + base, ox, oy, ax, ay, az, ordx, ordy, ordz, s);
+      else
+        gather_taps<NT, VAL, GRAD, HESS, kZFolded>(
+            inp + base, ox, oy, ax, ay, az, ordx, ordy, ordz, s);
     }
-    const long long o = base + r;
-    if (VAL) val[o] = acc;
-    if (GRAD) {
-      grd[3 * o] = ax;
-      grd[3 * o + 1] = ay;
-      grd[3 * o + 2] = az;
-    }
-    if (HESS) {
-      float* h = hes + 9 * o;
-      h[0] = hxx; h[1] = hxy; h[2] = hxz;
-      h[3] = hxy; h[4] = hyy; h[5] = hyz;
-      h[6] = hxz; h[7] = hyz; h[8] = hzz;
-    }
+    store_sums<VAL, GRAD, HESS>(s, base + r, val, grd, hes);
   }
 }
 
@@ -182,13 +157,20 @@ template <int NT, bool VAL, bool GRAD, bool HESS>
 cudaError_t launch(const float* inp, const float* grid, float* val,
                    float* grd, float* hes, const WarpParams& p,
                    cudaStream_t stream) {
-  const long long total =
-      p.B * (long long)p.shape[0] * p.shape[1] * p.shape[2];
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  if (blocks < 1 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  long long nb[3];
+  for (int d = 0; d < 3; ++d) {
+    if (p.block[d] < 0 || p.block[d] > 8) return cudaErrorInvalidConfiguration;
+    nb[d] = (p.shape[d] + (1LL << p.block[d]) - 1) >> p.block[d];
+  }
+  const int threads = 1 << (p.block[0] + p.block[1] + p.block[2]);
+  if (threads > 256 || nb[1] * nb[2] > 0x7fffffffLL || nb[0] > 65535 ||
+      p.B < 1 || p.B > 65535 ||
+      (long long)p.shape[1] * p.shape[2] > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  const dim3 blocks((unsigned)(nb[1] * nb[2]), (unsigned)nb[0],
+                    (unsigned)p.B);
   warp_kernel<NT, VAL, GRAD, HESS>
-      <<<(unsigned)blocks, threads, 0, stream>>>(inp, grid, val, grd, hes, p);
+      <<<blocks, threads, 0, stream>>>(inp, grid, val, grd, hes, p);
   return cudaGetLastError();
 }
 

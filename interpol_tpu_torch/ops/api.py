@@ -17,9 +17,11 @@ path (the JAX package's Pallas kernels' mode, which the port runs on every
 device); ``check_spread=True`` measures the grid and raises
 ``RuntimeError`` where it breaks ``max_disp`` or ``tile_spread``, with the
 JAX package's messages (``api.py:180-272``), after one host sync.
-``required_tile_spread`` gives the spread a grid needs.  Not ported yet,
-and raising ``NotImplementedError``: label maps (``classes=`` or integer
-input) and ``prefilter=True``.
+``required_tile_spread`` gives the spread a grid needs.  ``prefilter=True``
+is the identity on every axis of order 0 or 1, as in the JAX package
+(``coeff.py:461-463``).  Not ported yet, and raising
+``NotImplementedError``: label maps (``classes=`` or integer input) and
+``prefilter=True`` with an axis of order 2 or more.
 """
 from __future__ import annotations
 
@@ -108,15 +110,25 @@ def _sp_norm(tile_spread, max_disp):
     return None if tile_spread is None else _md_norm(tile_spread)
 
 
-def _not_ported(input, classes, prefilter):
+def _not_ported(input, classes, prefilter, orders):
     if classes is not None or not torch.is_floating_point(input):
         raise NotImplementedError(
             "label maps (classes= or integer input) are not ported yet "
             "(ROADMAP queue 1, Label maps)")
-    if prefilter:
+    check_prefilter(prefilter, orders)
+
+
+def check_prefilter(prefilter, orders, name="prefilter=True"):
+    """The spline prefilter is the identity along an axis of order 0 or 1
+    (the JAX package's ``coeff._coeff_impl``), so ``prefilter=True`` needs
+    nothing there; an axis of order 2 or more raises until
+    ``ops/coeff.py`` is ported."""
+    if prefilter and any(int(o) >= 2 for o in orders):
         raise NotImplementedError(
-            "prefilter=True needs ops/coeff.py, which is not ported yet "
-            "(ROADMAP queue 1, Prefilter)")
+            f"{name} at orders {tuple(int(o) for o in orders)} needs the "
+            f"spline prefilter (ops/coeff.py), which is not ported yet "
+            f"(ROADMAP queue 1, Prefilter); at orders 0 and 1 it is the "
+            f"identity")
 
 
 # ------------------------------------------------- contract checks
@@ -259,7 +271,7 @@ def grid_pull(input, grid, interpolation="linear", bound="zero",
     orders, bounds, ex = normalize_options(interpolation, bound,
                                            extrapolate, D)
     sp = _sp_norm(tile_spread, max_disp)
-    _not_ported(input, classes, prefilter)
+    _not_ported(input, classes, prefilter, orders)
     grid, inp, info = _preproc(grid, input)
     if _use_window(max_disp, grid, inp):
         if check_spread:
@@ -292,7 +304,7 @@ def grid_push(input, grid, shape=None, interpolation="linear",
     orders, bounds, ex = normalize_options(interpolation, bound,
                                            extrapolate, D)
     sp = _sp_norm(tile_spread, max_disp)
-    _not_ported(input, None, prefilter)
+    _not_ported(input, None, prefilter, orders)
     grid, inp, info = _preproc(grid, input, mode="push")
     shape = tuple(inp.shape[2:]) if shape is None \
         else tuple(int(s) for s in shape)
@@ -341,7 +353,7 @@ def grid_grad(input, grid, interpolation="linear", bound="zero",
     orders, bounds, ex = normalize_options(interpolation, bound,
                                            extrapolate, D)
     sp = _sp_norm(tile_spread, max_disp)
-    _not_ported(input, None, prefilter)
+    _not_ported(input, None, prefilter, orders)
     grid, inp, info = _preproc(grid, input)
     if _use_window(max_disp, grid, inp):
         if check_spread:

@@ -42,8 +42,8 @@ from ._patch import PatchGeom, patch_geom
 from .tiles import lifted_tile, tile_bases
 from .window import _md_tuple, window_range
 
-__all__ = ["warp_cuda", "hess_cuda", "push_cuda", "LAUNCHES",
-           "LAUNCHES_BY_MODE", "reset_launches"]
+__all__ = ["warp_cuda", "hess_cuda", "push_cuda", "warp_block",
+           "LAUNCHES", "LAUNCHES_BY_MODE", "reset_launches"]
 
 LAUNCHES = 0
 LAUNCHES_BY_MODE: Dict[str, int] = {
@@ -81,7 +81,33 @@ class _WarpParams(ctypes.Structure):
         ("base", ctypes.c_void_p * 3),
         ("tile", ctypes.c_int * 3),
         ("ntile", ctypes.c_int * 3),
+        ("block", ctypes.c_int * 3),
     ]
+
+
+def warp_block(shape3: Sequence[int]) -> Tuple[int, int, int]:
+    """log2 of the dense gather's block tile (x, y, z) over a 3-D (lifted)
+    volume: z takes up to 32 voxels (128 for a lifted 1-D volume), then y
+    and x grow in turn up to 8 each, within 256 threads and the volume's
+    own extent.  Every extent is a power of two that divides the TPU tile
+    of its axis (8, 8, and 128 or the full z span; ``ops/tiles.py``), so
+    a block aligned on its extent lies inside one TPU tile and shares its
+    adaptive base."""
+    def clog2(n):
+        return max(int(n) - 1, 0).bit_length()
+    X, Y, Z = shape3
+    lz = min(7 if X == Y == 1 else 5, clog2(Z))
+    cap = [min(3, clog2(X)), min(3, clog2(Y))]
+    lxy = [0, 0]
+    for _ in range(8 - lz):
+        # grow y first, then alternate: 2 x 4 x 32 at 256^3
+        d = 1 if lxy[1] <= lxy[0] else 0
+        if lxy[d] >= cap[d]:
+            d = 1 - d
+        if lxy[d] >= cap[d]:
+            break
+        lxy[d] += 1
+    return lxy[0], lxy[1], lz
 
 
 _fns = {}
@@ -176,6 +202,7 @@ def _launch_setup(name, inp, grid, orders, bounds, extrapolate, max_disp,
                                          dtype=torch.float32))
     p.thr_lo = float(torch.tensor(-thr, dtype=torch.float32))
     p.masked = int(extrapolate != 1)
+    p.block[:] = warp_block(shape3)
     if bases is not None:
         # (3, B, *ntiles3): the lifted axes are one tile of base 0
         tile3 = (1,) * nd + tuple(tile)

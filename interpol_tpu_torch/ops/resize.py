@@ -7,8 +7,9 @@ modes (centers, edges, first, last) and the same defaults
 accumulated scale unless ``reduce_sum=True``).  Only the separable route
 is ported: the sampling grid is an outer product of per-axis lines, so the
 resample is D matmuls (``ops/separable.py``).  ``prefilter=True`` (the
-default of ``resize``, as in the JAX package) raises until
-``ops/coeff.py`` is ported; integer label maps raise until the label path
+default of ``resize``, as in the JAX package) is the identity at orders 0
+and 1, as there; with an axis of order 2 or more it raises until
+``ops/coeff.py`` is ported.  Integer label maps raise until the label path
 is ported.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from ..options import normalize_options
 from ..utils.shapes import make_list
+from .api import check_prefilter
 from .separable import separable_pull, separable_push
 
 __all__ = ["resize", "restrict"]
@@ -52,12 +54,8 @@ def _ndim_anchors(image, factor, shape, anchor):
     return ndim, [a[0].lower() for a in make_list(anchor_list, ndim)]
 
 
-def _check_ported(image, prefilter, name):
-    if prefilter:
-        raise NotImplementedError(
-            f"{name}(prefilter=True) needs the spline prefilter "
-            f"(ops/coeff.py), which is not ported yet (ROADMAP queue 1, "
-            f"Prefilter)")
+def _check_ported(image, prefilter, orders, name):
+    check_prefilter(prefilter, orders, f"{name}(prefilter=True)")
     if not torch.is_floating_point(image):
         raise NotImplementedError(
             f"{name} of label maps is not ported yet (ROADMAP queue 1, "
@@ -77,7 +75,8 @@ def resize(image, factor=None, shape=None, anchor="c",
     shape : target spatial shape
     anchor : {'centers','edges','first','last'} or per-dim list
     interpolation : spline order(s), default=1
-    prefilter : must be False until the prefilter is ported
+    prefilter : default True; the identity at orders 0 and 1, raises
+        at higher orders until the prefilter is ported
     kwargs : ``bound`` (default 'nearest'), ``extrapolate`` (default True)
     """
     image = torch.as_tensor(image)
@@ -89,7 +88,10 @@ def resize(image, factor=None, shape=None, anchor="c",
     kwargs.setdefault("extrapolate", True)
     kwargs.setdefault("interpolation", interpolation)
     kwargs.setdefault("prefilter", prefilter)
-    _check_ported(image, kwargs["prefilter"], "resize")
+    orders, bounds, ex = normalize_options(
+        kwargs["interpolation"], kwargs["bound"], kwargs["extrapolate"],
+        ndim)
+    _check_ported(image, kwargs["prefilter"], orders, "resize")
 
     kw = dict(dtype=image.dtype, device=image.device)
     lines = []
@@ -108,9 +110,6 @@ def resize(image, factor=None, shape=None, anchor="c",
         else:
             raise ValueError(f"Unknown anchor {anch}")
 
-    orders, bounds, ex = normalize_options(
-        kwargs["interpolation"], kwargs["bound"], kwargs["extrapolate"],
-        ndim)
     return separable_pull(image, lines, orders, bounds, ex)
 
 
@@ -122,8 +121,8 @@ def restrict(image, factor=None, shape=None, anchor="c",
     The sampling grid lives in the *output* space; the image is splatted
     by the transposed separable sampling matrices and divided by the
     accumulated scale unless ``reduce_sum``.  Arguments as :func:`resize`
-    (``prefilter`` defaults to False and must stay so until the
-    prefilter is ported).
+    (``prefilter`` defaults to False; True is the identity at orders 0
+    and 1 and raises at higher orders until the prefilter is ported).
     """
     image = torch.as_tensor(image)
     ndim, anchors = _ndim_anchors(image, factor, shape, anchor)
@@ -157,10 +156,10 @@ def restrict(image, factor=None, shape=None, anchor="c",
     kwargs.setdefault("extrapolate", True)
     kwargs.setdefault("interpolation", interpolation)
     kwargs.setdefault("prefilter", False)
-    _check_ported(image, kwargs["prefilter"], "restrict")
     orders, bounds, ex = normalize_options(
         kwargs["interpolation"], kwargs["bound"], kwargs["extrapolate"],
         ndim)
+    _check_ported(image, kwargs["prefilter"], orders, "restrict")
     out = separable_push(image, lines, tuple(shape), orders, bounds, ex)
     if not reduce_sum:
         out = out / fullscale

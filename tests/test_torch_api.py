@@ -69,9 +69,22 @@ def test_grid_constructors():
 
 def test_not_ported_yet_raises():
     img, grid = dense_case((1,), (1,), 1, (4, 4, 4))
+    # prefilter=True is the identity at orders 0 and 1, as in JAX: the
+    # pull, gradient and push (dense-warp and generic paths) match
+    for fn, kw in [("grid_pull", dict(max_disp=1.0)),
+                   ("grid_grad", dict(interpolation=[1, 0, 1])),
+                   ("grid_push", dict(bound="dct2"))]:
+        ref = getattr(itp, fn)(jnp.asarray(img), jnp.asarray(grid),
+                               prefilter=True, **kw)
+        out = getattr(itt, fn)(torch.as_tensor(img), torch.as_tensor(grid),
+                               prefilter=True, **kw)
+        assert tuple(out.shape) == tuple(ref.shape)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
     img, grid = torch.as_tensor(img), torch.as_tensor(grid)
     with pytest.raises(NotImplementedError, match="prefilter"):
-        itt.grid_pull(img, grid, prefilter=True)
+        itt.grid_pull(img, grid, interpolation=3, prefilter=True)
+    with pytest.raises(NotImplementedError, match="prefilter"):
+        itt.grid_push(img, grid, interpolation=[1, 1, 2], prefilter=True)
     with pytest.raises(NotImplementedError, match="label"):
         itt.grid_pull(img.long(), grid)
     # check_spread is ported: it measures the grid and raises on a

@@ -489,3 +489,154 @@ def test_register_card_matches_cpu(cuda_device):
         out.append((params.cpu(), losses.cpu()))
     for a, b in zip(*out):
         assert_close(a, b, STEP_TOL)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary, so that no (b, c) volume or row is 16-byte aligned."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+def _equal_nan(a, b):
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+# the gathers' tap setup (spline_taps.cuh::tap_axis): interior taps
+# unfolded, the rest folded at every face; orders 0-7 over every bound,
+# B=2, C=3, shapes that are no multiple of the block tile (and Z % 4 != 0),
+# max_disp 0 and 8, grids that break max_disp, the adaptive bases (z tiles
+# of 128 and a full-span z), 2-D and 1-D lifts; misaligned (b, c) bases;
+# blocks deep inside the volume beside blocks at its faces
+DENSE_GATHERS = [
+    ((0, 0, 0), (0, 1, 2), 1, (19, 21, 37), 1.5, None, 0.0, False),
+    ((1, 1, 1), (3, 4, 5), 0, (5, 7, 9), 1.5, None, 0.0, True),
+    ((2, 2, 2), (6, 0, 1), 2, (17, 18, 19), 0.0, None, 0.0, False),
+    ((3, 3, 3), (0, 1, 2), 1, (33, 10, 35), 8.0, None, 0.0, False),
+    ((4, 5, 6), (3, 4, 5), 1, (11, 12, 13), 2.0, None, 3.0, True),
+    ((7, 7, 7), (6, 5, 4), 0, (9, 10, 11), 1.0, None, 0.0, False),
+    ((3, 3, 3), (4, 4, 4), 1, (20, 17, 140), 2.0, 0.5, 0.0, False),
+    ((1, 1, 1), (1, 1, 1), 2, (16, 24, 30), 1.5, (0.5, 1.0, 0.5), 0.0,
+     True),
+    ((3, 1), (6, 3), 1, (33, 18), 2.0, None, 2.0, False),
+    ((1,), (2,), 1, (300,), 1.5, 0.5, 0.0, False),
+    ((3, 3, 3), (3, 3, 3), 1, (20, 24, 70), 1.5, None, 0.0, False),
+    ((3, 2, 3), (6, 1, 2), 2, (18, 20, 72), 1.5, (1.0, 0.5, 1.5), 3.0,
+     True),
+]
+
+
+@pytest.mark.parametrize("orders,bounds,ex,ish,md,sp,brk,mis",
+                         DENSE_GATHERS)
+def test_dense_gathers_match_plain_and_repeat(cuda_device, orders, bounds,
+                                              ex, ish, md, sp, brk, mis):
+    # max_disp 0: displacements of 0.5 break it (taps are dropped)
+    inp, grid = warp_case(cuda_device, ish, C=3, disp=md or 0.5, B=2,
+                          break_contract=brk, seed=7)
+    if sp is not None:
+        grid[0, :8] += 1.0          # tiles with different bases
+    if mis:
+        inp = _misaligned(inp)
+    opts = (orders, bounds, ex, md, sp)
+    val, g = cuda_warp.warp_cuda(inp, grid, *opts, value=True, grad=True)
+    outs = [val, g, cuda_warp.warp_cuda(inp, grid, *opts)[0],
+            cuda_warp.warp_cuda(inp, grid, *opts, value=False,
+                                grad=True)[1],
+            cuda_warp.hess_cuda(inp, grid, *opts)]
+    assert torch.equal(outs[2], val) and torch.equal(outs[3], g)
+    assert_close(val, tw._pull_impl_torch(inp, grid, *opts))
+    assert_close(g, tw._grad_impl_torch(inp, grid, *opts))
+    assert_close(outs[4], tw._hess_impl_torch(inp, grid, *opts))
+    again = [*cuda_warp.warp_cuda(inp, grid, *opts, value=True, grad=True),
+             cuda_warp.hess_cuda(inp, grid, *opts)]
+    for a, b in zip(again, outs[:2] + outs[4:]):
+        assert torch.equal(a, b)
+
+
+def test_dense_gathers_nonfinite_coordinates(cuda_device):
+    """NaN, +-inf and |g| > 2^30 coordinates fail the window test: no tap,
+    0, as in the plain version (every extrapolation mode)."""
+    inp, grid = warp_case(cuda_device, (9, 10, 12), C=3, disp=1.0, B=2)
+    grid[0, 1, 2, 3] = float("nan")
+    grid[0, 2, 2, 3, 1] = float("inf")
+    grid[1, 3, 4, 5, 2] = -float("inf")
+    grid[1, 4, 4, 4, 0] = 3e9
+    grid[1, 5, 5, 5, 2] = -2e30
+    for ex in (0, 1, 2):
+        opts = ((3, 2, 1), (3, 6, 0), ex, 2.0)
+        val, g = cuda_warp.warp_cuda(inp, grid, *opts, value=True,
+                                     grad=True)
+        h = cuda_warp.hess_cuda(inp, grid, *opts)
+        for out in (val, g, h):
+            assert torch.isfinite(out).all()
+        assert (val[0, :, 1, 2, 3] == 0).all()
+        assert (val[1, :, 5, 5, 5] == 0).all()
+        assert_close(val, tw._pull_impl_torch(inp, grid, *opts))
+        assert_close(g, tw._grad_impl_torch(inp, grid, *opts))
+        assert_close(h, tw._hess_impl_torch(inp, grid, *opts))
+
+
+# scattered: orders 0-7 over every bound, B=2, C=3, points outside both ends
+# of every axis (masked on both sides at extrapolate 0 and 2), P no
+# multiple of 32, Z % 4 != 0, lifted 2-D and 1-D clouds
+SC_GATHERS = [
+    ((3, 3, 3), (3, 3, 3), 1, (21, 22, 23), 1000, False),
+    ((1, 1, 1), (0, 1, 2), 0, (9, 10, 12), 777, True),
+    ((2, 2, 2), (6, 5, 4), 2, (8, 9, 16), 515, False),
+    ((0, 4, 7), (1, 2, 3), 1, (7, 8, 9), 333, False),
+    ((5, 6, 3), (4, 5, 6), 0, (10, 11, 12), 200, True),
+    ((3, 1), (4, 3), 1, (12, 10), 301, False),
+    ((1,), (6,), 2, (15,), 97, False),
+]
+
+
+@pytest.mark.parametrize("orders,bounds,ex,ish,P,mis", SC_GATHERS)
+def test_scattered_gathers_match_plain_and_repeat(cuda_device, orders,
+                                                  bounds, ex, ish, P, mis):
+    inp, grid = sc_case(cuda_device, ish, P, C=3, seed=8)
+    if mis:
+        inp = _misaligned(inp)
+    opts = (orders, bounds, ex)
+    runs = []
+    for _ in range(2):
+        v, g, _ = cuda_scattered.gather_cuda(inp, grid, *opts, value=True,
+                                             grad=True)
+        _, g2, h = cuda_scattered.gather_cuda(inp, grid, *opts,
+                                              value=False, grad=True,
+                                              hess=True)
+        runs.append((v, g, g2, h))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    v, g, g2, h = runs[0]
+    assert torch.equal(g, g2)
+    assert_close(v, nd.pull_core(inp, grid, *opts))
+    assert_close(g, nd.grad_core(inp, grid, *opts))
+    assert_close(h, nd.hess_core(inp, grid, *opts))
+
+
+@pytest.mark.parametrize("ex", [0, 1, 2])
+def test_scattered_gathers_nonfinite_coordinates(cuda_device, ex):
+    """NaN, +-inf and |g| > 2^30 coordinates read clamped indices: no
+    fault, the same result on every run; masked (extrapolate 0, 2) they
+    give 0 where the plain version's 0 * NaN gives NaN, and every other
+    point matches the plain version."""
+    inp, pts = sc_case(cuda_device, (9, 10, 12), 500, C=3)
+    bad = [(0, 3), (0, 4), (1, 5), (1, 6), (1, 7)]
+    pts[0, 3] = float("nan")
+    pts[0, 4, 1] = float("inf")
+    pts[1, 5, 2] = -float("inf")
+    pts[1, 6, 0] = 3e9
+    pts[1, 7] = -2e30
+    opts = ((3, 2, 1), (3, 6, 0), ex)
+    v = cuda_scattered.gather_cuda(inp, pts, *opts)[0]
+    _equal_nan(cuda_scattered.gather_cuda(inp, pts, *opts)[0], v)
+    ref = nd.pull_core(inp, pts, *opts)
+    good = torch.ones_like(v, dtype=torch.bool)
+    for b, p in bad:
+        good[b, :, p] = False
+        if ex != 1:
+            assert (v[b, :, p] == 0).all()
+    assert_close(v[good], ref[good])

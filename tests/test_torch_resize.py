@@ -58,8 +58,20 @@ def test_resize(kw):
 
 
 def test_resize_not_ported_yet():
+    # the default call (order 1, prefilter=True): the prefilter is the
+    # identity at orders 0 and 1, as in the JAX package
+    img = np.random.default_rng(3).standard_normal((1, 2, 4, 5))
+    ref = jr.resize(jnp.asarray(img), factor=2)
+    out = tr.resize(torch.as_tensor(img), factor=2)
+    assert tuple(out.shape) == tuple(ref.shape)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    out = tr.resize(torch.as_tensor(img), factor=[2, 2], interpolation=0)
+    ref = jr.resize(jnp.asarray(img), factor=[2, 2], interpolation=0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
     img = torch.zeros((1, 1, 4, 4))
     with pytest.raises(NotImplementedError, match="prefilter"):
-        tr.resize(img, factor=2)
+        tr.resize(img, factor=2, interpolation=3)
+    with pytest.raises(NotImplementedError, match="prefilter"):
+        tr.resize(img, factor=[2, 2], interpolation=[1, 2])
     with pytest.raises(NotImplementedError, match="label"):
         tr.resize(img.long(), factor=2, prefilter=False)

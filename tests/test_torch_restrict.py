@@ -69,8 +69,16 @@ def test_restrict_is_the_adjoint_of_resize():
 
 
 def test_restrict_not_ported_yet_raises():
+    # prefilter=True is the identity at orders 0 and 1, as in JAX
+    x = np.random.default_rng(4).standard_normal((1, 2, 8, 7))
+    for order in (1, [0, 1]):
+        kw = dict(factor=[2, 2], prefilter=True, interpolation=order)
+        ref = jr.restrict(jnp.asarray(x), **kw)
+        out = tr.restrict(torch.as_tensor(x), **kw)
+        assert tuple(out.shape) == tuple(ref.shape)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
     img = torch.zeros((1, 1, 8, 8), dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="prefilter"):
-        tr.restrict(img, factor=[2, 2], prefilter=True)
+        tr.restrict(img, factor=[2, 2], prefilter=True, interpolation=3)
     with pytest.raises(NotImplementedError, match="label"):
         tr.restrict(img.long(), factor=[2, 2])
