@@ -42,8 +42,15 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    cubic, dct2, ``max_disp=4``, 20 steps per level, ``tile_spread="auto"``)
    on a synthetic pair, P10 the gradients in moving image and control
    points of P8's MSE and those of ``sum(grid_grad(..., tile_spread=)**2)``
-   in volume and grid; the kernels' outputs in each path held to the plain
-   versions on the same inputs;
+   in volume and grid; P11 the interpolating prefilter (256^3 on the matrix
+   path, a 4096^2 plane on the blocked scan, cubic) against the CPU in
+   float64 and unchanged with TF32 on, the resize-identity through kernel
+   1, ``resize`` 128^3 -> 256^3 with its defaults at cubic, the label warp
+   (P2's model on a 256^3 int32 map of 32 blobs: kernel 1 per class), the
+   label resize 128^3 -> 256^3 (kernel 3 per class) and restrict (kernel
+   4), held to the plain paths where the plain top two soft values differ
+   by more than 1e-4, and a prefiltered reslice on P7's grid; the kernels'
+   outputs in each path held to the plain versions on the same inputs;
 6. times and peak memory beside the card's name and power limit, push and
    every splat equal across runs, ``grid_sample`` as the library yardstick
    at order 1 (its output for value, its input gradient for push, its grid
@@ -74,13 +81,15 @@ import torch
 
 from interpol_tpu_torch import (PyramidModel, SVFModel, WarpModel,
                                 affine_grid, grid_count, grid_grad,
-                                grid_pull, grid_push, jacobian_det, mse_loss,
-                                register, required_tile_spread, resize,
-                                restrict, svf_mse_loss, svf_train_step,
-                                train_step)
+                                grid_pull, grid_push, identity_grid,
+                                jacobian_det, mse_loss, register,
+                                required_tile_spread, resize, restrict,
+                                spline_coeff_nd, svf_mse_loss,
+                                svf_train_step, train_step)
 from interpol_tpu_torch.models import pyramid
-from interpol_tpu_torch.ops import (_build, cuda_scattered, cuda_warp,
+from interpol_tpu_torch.ops import (_build, coeff, cuda_scattered, cuda_warp,
                                     ndkernels, pushpull, window)
+from interpol_tpu_torch.ops.separable import separable_pull
 from interpol_tpu_torch.ops.tiles import default_tile
 from interpol_tpu_torch.ops.window import (
     _grad_impl_torch, _hess_impl_torch, _pull_impl_torch, _push_impl_torch,
@@ -1272,7 +1281,7 @@ def phase_adaptive_main(card, errs, drive, train) -> dict:
     mov = torch.tensor(rng.standard_normal((1, 1) + MAIN_VOL)
                        .astype(np.float32), device=DEV)
     mov = resize(restrict(mov, factor=2, interpolation=1),
-                 shape=list(MAIN_VOL), interpolation=3, prefilter=False)
+                 shape=list(MAIN_VOL), interpolation=3)
     true = torch.tensor(rng.uniform(-2, 2, (1,) + MAIN_COARSE + (3,))
                         .astype(np.float32), device=DEV)
     finest = pm.finest()
@@ -1451,6 +1460,291 @@ def phase_adaptive_times(card, errs, ad, train) -> dict:
 
 # the pieces of one scattered splat, by device kernel name (lower case);
 # "sort" is the box sort and, when a cloud has outliers, their pair sort
+# ------------------------------------------------ prefilter and labels
+# P11: the interpolating prefilter (ops/coeff.py: float64 products, no
+# kernel) and the label-map paths through the four kernels
+LABEL_CLASSES = 32      # the order of a whole-brain segmentation's count
+MARGIN = 1e-4           # labels are held where the plain top two differ
+
+
+def prefilter_work(shape, order=3, scan=False):
+    """(least bytes, operations) of spline_coeff_nd over every axis of a
+    float32 volume: read once, written once; the matrix path does 2 n
+    operations per voxel and axis, the blocked scan per pole two chunk
+    products of 2 * 128 and two carries per voxel and axis."""
+    n = math.prod(shape)
+    poles = {2: 1, 3: 1, 4: 2, 5: 2, 6: 3, 7: 3}[order]
+    per = [2 * 2 * (2 * 128 + 2) * poles if scan else 2 * s for s in shape]
+    return 8 * n, n * sum(per)
+
+
+def separable_ops(ishape, oshape, order=3):
+    """Operations of resize's prefilter and its D sampling products."""
+    ops = prefilter_work(ishape, order)[1]
+    cur = list(ishape)
+    for d, o in enumerate(oshape):
+        ops += 2 * o * math.prod(cur)
+        cur[d] = o
+    return ops
+
+
+def bound_text(nbytes, ops) -> str:
+    ms, by = bound(nbytes, ops)
+    return (f"bound {ms:.3f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.2f} GFLOP)")
+
+
+def blobs(shape, classes, seed):
+    """A (1, 1, *shape) int32 map of ``classes`` smooth blobs: the argmax
+    of ``classes`` N(0, 1) fields on a 16x coarser grid, upsampled."""
+    gen = torch.Generator(DEV).manual_seed(seed)
+    coarse = torch.randn((classes, 1) + tuple(s // 16 for s in shape),
+                         device=DEV, generator=gen)
+    lab = torch.zeros((1, 1) + tuple(shape), dtype=torch.int32, device=DEV)
+    best = torch.full(lab.shape, -math.inf, device=DEV)
+    for c in range(classes):
+        f = resize(coarse[c:c + 1], shape=list(shape), interpolation=3,
+                   prefilter=False, anchor="e")
+        lab[f > best] = c
+        best = torch.maximum(best, f)
+    return lab
+
+
+def plain_labels(lab, pull, prefilter=None):
+    """The label pull on plain versions: each class's soft map (prefiltered
+    by ``prefilter``) pulled by ``pull``, the strict argmax from (0, label
+    0); and the margin between each voxel's top two values (0 among
+    them)."""
+    top = None
+    out = None
+    for c in range(LABEL_CLASSES):
+        soft = (lab == c).float()
+        if prefilter is not None:
+            soft = prefilter(soft)
+        soft = pull(soft)
+        if top is None:
+            out = torch.zeros(soft.shape, dtype=lab.dtype, device=DEV)
+            top = torch.stack([torch.zeros_like(soft)] * 2)
+        out[soft > top[0]] = c
+        top = torch.stack([torch.maximum(top[0], soft),
+                           torch.maximum(top[1], torch.minimum(top[0],
+                                                               soft))])
+    return out, top[0] - top[1]
+
+
+def hold_labels(tag, out, ref, margin):
+    """Labels equal wherever the plain top two differ by more than
+    MARGIN; returns the share of voxels inside the margin."""
+    sure = margin > MARGIN
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"{tag}: {out.shape} {out.dtype} vs "
+                             f"{ref.shape} {ref.dtype}")
+    bad = int((out != ref)[sure].sum())
+    inside = int((~sure).sum())
+    if bad:
+        raise AssertionError(f"{tag}: {bad} labels differ from the plain "
+                             f"path outside the {MARGIN} margin")
+    log(f"{tag}: labels equal to the plain path on the card wherever the "
+        f"plain top two differ by more than {MARGIN}; {inside} of "
+        f"{out.numel()} voxels inside the margin, "
+        f"{int((out != ref)[~sure].sum())} of them differ")
+    return inside
+
+
+def phase_prefilter_labels(card, errs, drive, train, sc) -> None:
+    """P11: the prefilter on both paths against the CPU in float64, with
+    TF32 on; the resize-identity through kernel 1; resize with its
+    defaults at cubic; the label warp, the label resize and the label
+    restrict (kernels 1, 3, 4) held to their plain versions; a
+    prefiltered reslice (kernel 3)."""
+    def held(name, out, ref, tol=TOL):
+        e, t = rel_err(out.cpu(), ref, tol)
+        if not e <= t:
+            raise AssertionError(f"{name}: err {e:.3g} > tol {t:.3g}")
+        log(f"{name}: err {e:.3g} (tol {t:.3g})")
+
+    rng = np.random.default_rng(11)
+    # the matrix path: 256^3, cubic, dct2, every axis
+    x = torch.tensor(rng.standard_normal((1, 1) + MAIN_VOL)
+                     .astype(np.float32), device=DEV)
+    coeffs = lambda: spline_coeff_nd(x, 3, "dct2", dim=3)
+    out = coeffs()
+    ref = spline_coeff_nd(x.cpu().double(), 3, "dct2", dim=3)
+    held(f"prefilter {MAIN_VOL} cubic dct2 (matrix path), card vs CPU "
+         f"float64", out, ref)
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        a = x[0, 0, 0]
+        tf32 = (a @ a - (a.double() @ a.double()).float()).abs().max()
+        same = torch.equal(coeffs(), out)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    if not same:
+        raise AssertionError("prefilter: TF32 moved the result")
+    log(f"prefilter with set_float32_matmul_precision('high'): result "
+        f"torch.equal to the default's (a float32 256x256 product moves "
+        f"by {tf32.item():.3g} under it)")
+    flow = identity_grid(MAIN_VOL, device=DEV)[None]
+    back = drive("P11: resize-identity, grid_pull(x, identity, cubic, dct2, "
+                 "prefilter, max_disp 1)",
+                 lambda: grid_pull(x, flow, 3, "dct2", prefilter=True,
+                                   max_disp=1.0), {"value": (1, 1)})
+    held(f"resize-identity {MAIN_VOL} through kernel 1 (float32 "
+         f"coefficients, then a float32 pull)", back, x.cpu(), TOL_STEP)
+    del back, flow
+    w = prefilter_work(MAIN_VOL)
+    b_ms, b_by = bound(*w)
+    ms = cuda_ms(coeffs, 20)
+    log(f"time prefilter {MAIN_VOL} C=1 cubic dct2 (matrix path, float64 "
+        f"products): {ms:.3f} ms (median of 20, peak +{peak_mib(coeffs):.0f}"
+        f" MiB), bound {b_ms:.3f} ms ({b_by}: {w[0] / 1e6:.1f} MB, "
+        f"{w[1] / 1e9:.2f} GFLOP) [{card}]")
+    # the same products in float32 (TF32 off), which the port does not use
+    coeff._WORK = torch.float32
+    try:
+        e, _ = rel_err(coeffs().cpu(), ref)
+        f32_ms = cuda_ms(coeffs, 20)
+    finally:
+        coeff._WORK = torch.float64
+    log(f"time prefilter {MAIN_VOL} with float32 products (not used): "
+        f"{f32_ms:.3f} ms (median of 20), err vs CPU float64 {e:.3g} "
+        f"[{card}]")
+    del out, ref
+
+    # the blocked scan: a 4096 x 4096 plane, cubic, dct1
+    y = torch.tensor(rng.standard_normal((1, 1, 4096, 4096))
+                     .astype(np.float32), device=DEV)
+    scan = lambda: spline_coeff_nd(y, 3, "dct1", dim=2)
+    held("prefilter (4096, 4096) cubic dct1 (blocked scan), card vs CPU "
+         "float64", scan(), spline_coeff_nd(y.cpu().double(), 3, "dct1",
+                                            dim=2))
+    w = prefilter_work((4096, 4096), scan=True)
+    b_ms, b_by = bound(*w)
+    log(f"time prefilter (4096, 4096) C=1 cubic dct1 (blocked scan, "
+        f"float64): {cuda_ms(scan, 10):.3f} ms (median of 10, peak "
+        f"+{peak_mib(scan):.0f} MiB), bound {b_ms:.3f} ms ({b_by}: "
+        f"{w[0] / 1e6:.1f} MB, {w[1] / 1e9:.2f} GFLOP) [{card}]")
+    del y
+
+    # resize with its defaults at cubic: 128^3 -> 256^3
+    half = tuple(n // 2 for n in MAIN_VOL)
+    small = x[..., ::2, ::2, ::2].contiguous()
+    up = lambda: resize(small, factor=[2, 2, 2], interpolation=3)
+    # the CPU's float64 evaluation at the card's own float32 sample
+    # positions (a float32 position is off by up to 4e-6 voxel at 127,
+    # which moves a cubic N(0, 1) image by ~1e-5 on its own; reported too)
+    out = up()
+    lines = [torch.linspace(0, h - 1, n, device=DEV).cpu().double()
+             for h, n in zip(half, MAIN_VOL)]
+    coef = spline_coeff_nd(small.cpu().double(), 3, "nearest", dim=3)
+    held(f"resize {half} -> {MAIN_VOL} cubic, defaults (prefilter, "
+         f"nearest, extrapolate), card vs CPU float64 at the same sample "
+         f"positions", out, separable_pull(coef, lines, (3,) * 3, (1,) * 3,
+                                           1))
+    e, _ = rel_err(out.cpu(), resize(small.cpu().double(), factor=[2, 2, 2],
+                                     interpolation=3))
+    log(f"resize {half} -> {MAIN_VOL}: err {e:.3g} against the CPU's "
+        f"float64 call (float64 sample positions)")
+    del out, coef
+    work = (4 * small.numel() + 4 * x.numel(), separable_ops(half, MAIN_VOL))
+    log(f"time resize {half} -> {MAIN_VOL} cubic with the prefilter: "
+        f"{cuda_ms(up, 20):.3f} ms (median of 20, peak "
+        f"+{peak_mib(up):.0f} MiB), {bound_text(*work)} [{card}]")
+    del small, x
+
+    # the label warp: P2's model and flow, a 256^3 map of 32 blobs
+    lab = blobs(MAIN_VOL, LABEL_CLASSES, 12)
+    model = train["model"]
+    with torch.no_grad():
+        flow = model.dense_flow().contiguous()
+    present = len(torch.unique(lab))
+    with Spy() as spy:
+        (warped, mib) = drive(
+            f"P11: label warp, WarpModel{MAIN_VOL} (P2's, after its steps)"
+            f".warp of a {MAIN_VOL} int32 map of {present} classes",
+            lambda: with_peak(lambda: model.warp(lab)),
+            {"value": (present, present), "grad": (0, 0)})
+        spy.hold(errs, "P11 label warp, first class", ["_pull"])
+    opts = ((3, 3, 3), (3, 3, 3), 1, 4.0, None)
+    ref, margin = plain_labels(lab, lambda s: _pull_impl_torch(s, flow,
+                                                               *opts))
+    hold_labels(f"P11 label warp {MAIN_VOL}, {present} classes", warped,
+                ref, margin)
+    del ref, margin, warped
+    ms = cuda_ms(lambda: model.warp(lab), 3)
+    # the map and the flow read once, the labels written once; a cubic
+    # pull per class
+    n = lab.numel()
+    log(f"time label warp {MAIN_VOL} int32, {present} classes (kernel 1 "
+        f"per class): {ms:.3f} ms (median of 3), peak +{mib:.0f} MiB over "
+        f"live tensors, "
+        f"{bound_text(20 * n, present * dense_work(n)['value'][1])} "
+        f"[{card}]")
+
+    # the label resize: that map at 128^3 back to 256^3, cubic, prefilter
+    lab128 = lab[..., ::2, ::2, ::2].contiguous()
+    present = len(torch.unique(lab128))
+    with ScSpy() as spy:
+        (big, mib) = drive(
+            f"P11: resize of the {half} map ({present} classes) to "
+            f"{MAIN_VOL}, cubic, prefilter (defaults)",
+            lambda: with_peak(lambda: resize(lab128, factor=[2, 2, 2],
+                                             interpolation=3)),
+            {"sc_value": (present, present), "value": (0, 0)})
+        spy.hold(errs, "P11 label resize, first class", ["sc_value"])
+    lines = [torch.linspace(0, h - 1, n, device=DEV)
+             for h, n in zip(half, MAIN_VOL)]
+    grid = torch.stack(torch.meshgrid(*lines, indexing="ij"), -1)
+    grid = grid.reshape(1, -1, 3)
+    ropts = ((3, 3, 3), (1, 1, 1), 1)
+    ref, margin = plain_labels(
+        lab128, lambda s: ndkernels.pull_core(s, grid, *ropts)
+        .reshape((1, 1) + MAIN_VOL),
+        lambda s: spline_coeff_nd(s, 3, "replicate", dim=3))
+    hold_labels(f"P11 label resize {half} -> {MAIN_VOL}", big, ref,
+                margin)
+    del ref, margin, big, grid
+    ms = cuda_ms(lambda: resize(lab128, factor=[2, 2, 2],
+                                interpolation=3), 3)
+    ops = present * (prefilter_work(half)[1] + dense_work(n)['value'][1])
+    log(f"time label resize {half} -> {MAIN_VOL} int32, {present} classes "
+        f"(prefilter and kernel 3 per class): {ms:.3f} ms (median of 3), "
+        f"peak +{mib:.0f} MiB over live tensors, "
+        f"{bound_text(4 * lab128.numel() + 4 * n, ops)} [{card}]")
+
+    # the label restrict: the 256^3 map by 2 (kernel 4, as floats)
+    with ScSpy() as spy:
+        small = drive(f"P11: restrict of the {MAIN_VOL} label map by 2",
+                      lambda: restrict(lab, factor=[2, 2, 2]),
+                      {"sc_push": (1, 1)})
+        spy.hold(errs, "P11 label restrict", ["sc_push"])
+    if small.dtype != torch.float32 or small.shape != (1, 1) + half:
+        raise AssertionError(f"label restrict: {small.dtype} {small.shape}")
+    ms = cuda_ms(lambda: restrict(lab, factor=[2, 2, 2]), 10)
+    # a linear splat: 2 x 8 weight products and 4 more per voxel
+    log(f"time label restrict {MAIN_VOL} -> {half} (kernel 4): {ms:.3f} ms "
+        f"(median of 10), {bound_text(4 * n + 4 * n // 8, 20 * n)} "
+        f"[{card}]")
+    del small, lab, lab128
+
+    # a prefiltered reslice: P7's affine grid, cubic, dct2
+    N = SC_N
+    vol7 = sc["vol"][0]
+    agrid = affine_grid(sc["mat"], (N,) * 3)
+    reslice = lambda: grid_pull(vol7, agrid, 3, "dct2", prefilter=True)
+    with torch.no_grad(), ScSpy() as spy:
+        out = drive(f"P11: prefiltered reslice of {N}^3 (P7's matrix), "
+                    f"cubic dct2", reslice, {"sc_value": (1, 1)})
+        spy.hold(errs, "P11 prefiltered reslice", ["sc_value"])
+        finite("P11 reslice", out)
+        ms = cuda_ms(reslice, 10)
+    ops = prefilter_work((N,) * 3)[1] + dense_work(N ** 3)['value'][1]
+    log(f"time prefiltered reslice {N}^3 from {N}^3 cubic dct2 (prefilter "
+        f"+ kernel 3): {ms:.3f} ms (median of 10), "
+        f"{bound_text(8 * N ** 3, ops)} [{card}]")
+
+
 SPLAT_PIECES = (("patch kernel", ("splat_patch_kernel",)),
                 ("overlap fold", ("overlap_fold",)),
                 ("outlier taps", ("outlier_taps",)),
@@ -1593,6 +1887,8 @@ def main() -> None:
     lap("P5-P7")
     ad = phase_adaptive_main(card, errs, drive, train)
     lap("P8-P10")
+    phase_prefilter_labels(card, errs, drive, train, sc)
+    lap("P11")
     times = phase_times(card, errs, main_path, train)
     lap("dense times")
     times.update(phase_sc_times(card, errs, sc))

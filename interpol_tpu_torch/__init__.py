@@ -1,7 +1,10 @@
 """interpol_tpu_torch — PyTorch/CUDA port of interpol_tpu.
 
 Ported from the JAX package beside it (``interpol_tpu/``, the reference):
-options and primitives (boundary folding, B-spline taps), the plain
+options and primitives (boundary folding, B-spline taps), the
+interpolating prefilter (``spline_coeff``, ``spline_coeff_nd`` and
+``prefilter=True`` everywhere), label maps (``classes=`` or an integer
+input to ``grid_pull``, ``resize`` and ``restrict``), the plain
 gather and scatter cores, the dense-warp window tier (with its adaptive
 per-tile windows: ``tile_spread``, ``check_spread``,
 ``required_tile_spread``) and the generic push/pull tier with their
@@ -23,7 +26,8 @@ from . import models, ops, utils  # noqa: F401
 from .options import BoundType, ExtrapolateType, InterpolationType  # noqa: F401
 from .ops.api import (  # noqa: F401
     grid_pull, grid_push, grid_count, grid_grad, pull, push, count,
-    identity_grid, add_identity_grid, affine_grid, required_tile_spread,
+    spline_coeff, spline_coeff_nd, identity_grid, add_identity_grid,
+    add_identity_grid_, affine_grid, required_tile_spread,
 )
 from .ops.flow import (  # noqa: F401
     compose_disp, exp_disp, disp_jacobian, jacobian_det, invert_disp,
@@ -39,7 +43,8 @@ from .models.pyramid import (  # noqa: F401
 
 __all__ = [
     "grid_pull", "grid_push", "grid_count", "grid_grad", "pull", "push",
-    "count", "identity_grid", "add_identity_grid", "affine_grid",
+    "count", "spline_coeff", "spline_coeff_nd", "identity_grid",
+    "add_identity_grid", "add_identity_grid_", "affine_grid",
     "compose_disp", "exp_disp", "disp_jacobian", "jacobian_det",
     "invert_disp", "resize", "restrict", "required_tile_spread",
     "WarpModel", "mse_loss", "params_from_jax", "train_step", "SVFModel",

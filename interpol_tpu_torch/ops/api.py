@@ -17,11 +17,16 @@ path (the JAX package's Pallas kernels' mode, which the port runs on every
 device); ``check_spread=True`` measures the grid and raises
 ``RuntimeError`` where it breaks ``max_disp`` or ``tile_spread``, with the
 JAX package's messages (``api.py:180-272``), after one host sync.
-``required_tile_spread`` gives the spread a grid needs.  ``prefilter=True``
-is the identity on every axis of order 0 or 1, as in the JAX package
-(``coeff.py:461-463``).  Not ported yet, and raising
-``NotImplementedError``: label maps (``classes=`` or integer input) and
-``prefilter=True`` with an axis of order 2 or more.
+``required_tile_spread`` gives the spread a grid needs.
+
+``prefilter=True`` runs the interpolating prefilter (``ops/coeff.py``,
+public as ``spline_coeff`` / ``spline_coeff_nd``) before the pull and the
+gradient and after the splat; it is the identity along an axis of order 0
+or 1.  Label maps (``classes=`` or an integer input to ``grid_pull``) are
+pulled one class at a time as soft maps, each optionally prefiltered, on
+the dense-warp path when ``max_disp`` applies and on the generic path
+otherwise, and rebuilt by a strict argmax in the order of the classes
+(the JAX package's ``_label_pull``, ``api.py:307-336``).
 """
 from __future__ import annotations
 
@@ -30,14 +35,16 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..options import normalize_options
+from ..options import normalize_options, to_bound, to_order
 from ..utils.shapes import expanded_shape
+from . import coeff as _coeff
 from . import pushpull as _pp
 from . import window as _window
 from .tiles import base_field, default_tile, tile_bases
 
 __all__ = ["grid_pull", "grid_push", "grid_count", "grid_grad",
-           "required_tile_spread", "identity_grid", "add_identity_grid",
+           "spline_coeff", "spline_coeff_nd", "required_tile_spread",
+           "identity_grid", "add_identity_grid", "add_identity_grid_",
            "affine_grid", "pull", "push", "count"]
 
 
@@ -108,27 +115,6 @@ def _sp_norm(tile_spread, max_disp):
         raise ValueError("tile_spread requires max_disp (the adaptive "
                          "window refines the dense-warp fast path)")
     return None if tile_spread is None else _md_norm(tile_spread)
-
-
-def _not_ported(input, classes, prefilter, orders):
-    if classes is not None or not torch.is_floating_point(input):
-        raise NotImplementedError(
-            "label maps (classes= or integer input) are not ported yet "
-            "(ROADMAP queue 1, Label maps)")
-    check_prefilter(prefilter, orders)
-
-
-def check_prefilter(prefilter, orders, name="prefilter=True"):
-    """The spline prefilter is the identity along an axis of order 0 or 1
-    (the JAX package's ``coeff._coeff_impl``), so ``prefilter=True`` needs
-    nothing there; an axis of order 2 or more raises until
-    ``ops/coeff.py`` is ported."""
-    if prefilter and any(int(o) >= 2 for o in orders):
-        raise NotImplementedError(
-            f"{name} at orders {tuple(int(o) for o in orders)} needs the "
-            f"spline prefilter (ops/coeff.py), which is not ported yet "
-            f"(ROADMAP queue 1, Prefilter); at orders 0 and 1 it is the "
-            f"identity")
 
 
 # ------------------------------------------------- contract checks
@@ -251,6 +237,12 @@ def grid_pull(input, grid, interpolation="linear", bound="zero",
     interpolation : int/str or per-dim sequence, default='linear'
     bound : int/str or per-dim sequence, default='zero'
     extrapolate : bool or int {0,1,2='hist'}, default=False
+    prefilter : bool — run the interpolating prefilter on the input first
+        (the spline then passes through the input's values)
+    classes : optional sequence of labels — pull a label map: one soft map
+        per class, rebuilt by argmax; an integer input is a label map with
+        ``classes`` its sorted unique values (one host sync).  The output
+        has the input's dtype.
     max_disp : optional float or per-axis tuple — declares that every
         sample lies within ``max_disp`` voxels of its own site (dense warp
         grids).  Samples breaking the bound lose the taps outside the
@@ -271,8 +263,12 @@ def grid_pull(input, grid, interpolation="linear", bound="zero",
     orders, bounds, ex = normalize_options(interpolation, bound,
                                            extrapolate, D)
     sp = _sp_norm(tile_spread, max_disp)
-    _not_ported(input, classes, prefilter, orders)
+    if classes is not None or not torch.is_floating_point(input):
+        return _label_pull(input, grid, orders, bounds, ex, prefilter,
+                           classes, max_disp, sp)
     grid, inp, info = _preproc(grid, input)
+    if prefilter:
+        inp = _coeff.spline_coeff_nd(inp, orders, bounds, D)
     if _use_window(max_disp, grid, inp):
         if check_spread:
             _check_spread(grid, inp.shape[2:], tile_spread, max_disp)
@@ -280,6 +276,42 @@ def grid_pull(input, grid, interpolation="linear", bound="zero",
                                   _md_norm(max_disp), sp)
     else:
         out = _pp.pull(inp, grid, orders, bounds, ex)
+    return _postproc(out, info, "pull")
+
+
+def _label_pull(input, grid, orders, bounds, ex, prefilter, classes,
+                max_disp, spread):
+    """Pull each class's soft map ``input == label`` (prefiltered when
+    asked); in the order of ``classes``, a class takes the voxels where
+    its pulled value is strictly above the running maximum, which starts
+    at 0 with label 0 (the JAX package's ``_label_pull``, its tie rule
+    included; no ``check_spread`` there either).  ``classes=None`` takes
+    the sorted unique values (one host sync).  The output has the input's
+    dtype and no gradient: the pulls run on the detached grid, so no
+    Function saves tensors for a backward, and each class is freed before
+    the next."""
+    if classes is None:
+        classes = torch.unique(input).tolist()
+    grid, inp, info = _preproc(grid.detach(), input)
+    D = grid.shape[-1]
+    fdtype = grid.dtype if torch.is_floating_point(grid) else torch.float32
+    oshape = inp.shape[:2] + grid.shape[1:-1]
+    out = torch.zeros(oshape, dtype=input.dtype, device=inp.device)
+    pmax = torch.zeros(oshape, dtype=fdtype, device=inp.device)
+    windowed = _use_window(max_disp, grid, inp)
+    with torch.no_grad():
+        for label in classes:
+            soft = (inp == label).to(fdtype)
+            if prefilter:
+                soft = _coeff.spline_coeff_nd(soft, orders, bounds, D)
+            if windowed:
+                soft = _window.pull_window(soft, grid, orders, bounds, ex,
+                                           _md_norm(max_disp), spread)
+            else:
+                soft = _pp.pull(soft, grid, orders, bounds, ex)
+            out.masked_fill_(soft > pmax, label)
+            torch.maximum(pmax, soft, out=pmax)
+            del soft
     return _postproc(out, info, "pull")
 
 
@@ -304,7 +336,8 @@ def grid_push(input, grid, shape=None, interpolation="linear",
     orders, bounds, ex = normalize_options(interpolation, bound,
                                            extrapolate, D)
     sp = _sp_norm(tile_spread, max_disp)
-    _not_ported(input, None, prefilter, orders)
+    if not torch.is_floating_point(input):
+        input = input.to(grid.dtype)     # an integer map splats as floats
     grid, inp, info = _preproc(grid, input, mode="push")
     shape = tuple(inp.shape[2:]) if shape is None \
         else tuple(int(s) for s in shape)
@@ -316,6 +349,8 @@ def grid_push(input, grid, shape=None, interpolation="linear",
                                   _md_norm(max_disp), sp)
     else:
         out = _pp.push(inp, grid, shape, orders, bounds, ex)
+    if prefilter:
+        out = _coeff.spline_coeff_nd(out, orders, bounds, D)
     return _postproc(out, info, "push")
 
 
@@ -353,8 +388,11 @@ def grid_grad(input, grid, interpolation="linear", bound="zero",
     orders, bounds, ex = normalize_options(interpolation, bound,
                                            extrapolate, D)
     sp = _sp_norm(tile_spread, max_disp)
-    _not_ported(input, None, prefilter, orders)
+    if not torch.is_floating_point(input):
+        input = input.to(grid.dtype)
     grid, inp, info = _preproc(grid, input)
+    if prefilter:
+        inp = _coeff.spline_coeff_nd(inp, orders, bounds, D)
     if _use_window(max_disp, grid, inp):
         if check_spread:
             _check_spread(grid, inp.shape[2:], tile_spread, max_disp)
@@ -363,6 +401,30 @@ def grid_grad(input, grid, interpolation="linear", bound="zero",
     else:
         out = _pp.grad(inp, grid, orders, bounds, ex)
     return _postproc(out, info, "grad")
+
+
+# ------------------------------------------------- prefilter API
+
+def spline_coeff(input, interpolation="linear", bound="dct2", dim=-1):
+    """Interpolating spline coefficients along axis ``dim`` of ``input``
+    (any layout): the prefilter that makes the spline built on them pass
+    through the input's values.  Bounds dct1/dct2/dft and their
+    zero/replicate aliases; the identity at orders 0 and 1."""
+    input = torch.as_tensor(input)
+    (order,) = to_order(interpolation, 1)
+    (bnd,) = to_bound(bound, 1)
+    return _coeff.spline_coeff(input, order, bnd, axis=dim)
+
+
+def spline_coeff_nd(input, interpolation="linear", bound="dct2", dim=None):
+    """Interpolating spline coefficients along the last ``dim`` axes of
+    ``input`` (``None``: every axis), one separable sweep per axis."""
+    input = torch.as_tensor(input)
+    if dim is None:
+        dim = input.ndim
+    orders = to_order(interpolation, dim)
+    bounds = to_bound(bound, dim)
+    return _coeff.spline_coeff_nd(input, orders, bounds, dim)
 
 
 # ------------------------------------------------- grid constructors
@@ -406,6 +468,9 @@ def affine_grid(mat: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return (lin @ grid[..., None])[..., 0] + off
 
 
+# the in-place spelling of the reference API, out of place as in the JAX
+# package, so that code written against it runs unchanged
+add_identity_grid_ = add_identity_grid
 pull = grid_pull
 push = grid_push
 count = grid_count

@@ -1,16 +1,17 @@
-"""Resize (scipy-zoom-like) and restrict (its adjoint) on the separable
-route.
+"""Resize (scipy-zoom-like) and restrict (its adjoint).
 
 PyTorch port of ``interpol_tpu/ops/resize.py:42-191``, with the four anchor
 modes (centers, edges, first, last) and the same defaults
 (``bound='nearest'``, ``extrapolate=True``; ``restrict`` divides by the
-accumulated scale unless ``reduce_sum=True``).  Only the separable route
-is ported: the sampling grid is an outer product of per-axis lines, so the
-resample is D matmuls (``ops/separable.py``).  ``prefilter=True`` (the
-default of ``resize``, as in the JAX package) is the identity at orders 0
-and 1, as there; with an axis of order 2 or more it raises until
-``ops/coeff.py`` is ported.  Integer label maps raise until the label path
-is ported.
+accumulated scale unless ``reduce_sum=True``).  A float image takes the
+separable route: the sampling grid is an outer product of per-axis lines,
+so the resample is D matmuls (``ops/separable.py``), after the
+interpolating prefilter (``prefilter=True``, the default of ``resize``, as
+in the JAX package; ``bound='nearest'`` aliases to dct2 there) or, for
+``restrict(..., prefilter=True)``, before it.  An integer label map takes
+the generic route on the meshgrid of those lines, as in the JAX package:
+``resize`` pulls it class by class (``grid_pull``'s label path) and
+``restrict`` splats it as floats (``grid_push``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 
 from ..options import normalize_options
 from ..utils.shapes import make_list
-from .api import check_prefilter
+from .api import grid_pull, grid_push
+from .coeff import spline_coeff_nd
 from .separable import separable_pull, separable_push
 
 __all__ = ["resize", "restrict"]
@@ -54,14 +56,6 @@ def _ndim_anchors(image, factor, shape, anchor):
     return ndim, [a[0].lower() for a in make_list(anchor_list, ndim)]
 
 
-def _check_ported(image, prefilter, orders, name):
-    check_prefilter(prefilter, orders, f"{name}(prefilter=True)")
-    if not torch.is_floating_point(image):
-        raise NotImplementedError(
-            f"{name} of label maps is not ported yet (ROADMAP queue 1, "
-            f"Label maps)")
-
-
 def resize(image, factor=None, shape=None, anchor="c",
            interpolation=1, prefilter=True, **kwargs):
     """Resize an image by a factor or to a target shape.
@@ -75,25 +69,18 @@ def resize(image, factor=None, shape=None, anchor="c",
     shape : target spatial shape
     anchor : {'centers','edges','first','last'} or per-dim list
     interpolation : spline order(s), default=1
-    prefilter : default True; the identity at orders 0 and 1, raises
-        at higher orders until the prefilter is ported
-    kwargs : ``bound`` (default 'nearest'), ``extrapolate`` (default True)
+    prefilter : apply the interpolating prefilter (default True)
+    kwargs : ``bound`` (default 'nearest'), ``extrapolate`` (default True);
+        for a label map, forwarded to ``grid_pull`` (``classes=`` ...)
     """
     image = torch.as_tensor(image)
     ndim, anchors = _ndim_anchors(image, factor, shape, anchor)
     inshape = image.shape[-ndim:]
     factor, shape = _resolve_geometry(inshape, factor, shape, ndim)
 
-    kwargs.setdefault("bound", "nearest")
-    kwargs.setdefault("extrapolate", True)
-    kwargs.setdefault("interpolation", interpolation)
-    kwargs.setdefault("prefilter", prefilter)
-    orders, bounds, ex = normalize_options(
-        kwargs["interpolation"], kwargs["bound"], kwargs["extrapolate"],
-        ndim)
-    _check_ported(image, kwargs["prefilter"], orders, "resize")
-
-    kw = dict(dtype=image.dtype, device=image.device)
+    fdtype = image.dtype if torch.is_floating_point(image) \
+        else torch.float32
+    kw = dict(dtype=fdtype, device=image.device)
     lines = []
     for anch, f, insz, outsz in zip(anchors, factor, inshape, shape):
         if anch == "c":      # centers: endpoints map to endpoints
@@ -110,6 +97,18 @@ def resize(image, factor=None, shape=None, anchor="c",
         else:
             raise ValueError(f"Unknown anchor {anch}")
 
+    kwargs.setdefault("bound", "nearest")
+    kwargs.setdefault("extrapolate", True)
+    kwargs.setdefault("interpolation", interpolation)
+    kwargs.setdefault("prefilter", prefilter)
+    if not torch.is_floating_point(image):
+        grid = torch.stack(torch.meshgrid(*lines, indexing="ij"), -1)
+        return grid_pull(image, grid, **kwargs)
+    orders, bounds, ex = normalize_options(
+        kwargs["interpolation"], kwargs["bound"], kwargs["extrapolate"],
+        ndim)
+    if kwargs["prefilter"]:
+        image = spline_coeff_nd(image, orders, bounds, ndim)
     return separable_pull(image, lines, orders, bounds, ex)
 
 
@@ -121,8 +120,8 @@ def restrict(image, factor=None, shape=None, anchor="c",
     The sampling grid lives in the *output* space; the image is splatted
     by the transposed separable sampling matrices and divided by the
     accumulated scale unless ``reduce_sum``.  Arguments as :func:`resize`
-    (``prefilter`` defaults to False; True is the identity at orders 0
-    and 1 and raises at higher orders until the prefilter is ported).
+    (``prefilter`` defaults to False; True prefilters the splat).  A label
+    map is splatted as floats and the result is float.
     """
     image = torch.as_tensor(image)
     ndim, anchors = _ndim_anchors(image, factor, shape, anchor)
@@ -130,7 +129,9 @@ def restrict(image, factor=None, shape=None, anchor="c",
     factor, shape = _resolve_geometry(inshape, factor, shape, ndim,
                                       for_restrict=True)
 
-    kw = dict(dtype=image.dtype, device=image.device)
+    fdtype = image.dtype if torch.is_floating_point(image) \
+        else torch.float32
+    kw = dict(dtype=fdtype, device=image.device)
     lines = []
     fullscale = 1.0
     for anch, f, insz, outsz in zip(anchors, factor, inshape, shape):
@@ -156,11 +157,16 @@ def restrict(image, factor=None, shape=None, anchor="c",
     kwargs.setdefault("extrapolate", True)
     kwargs.setdefault("interpolation", interpolation)
     kwargs.setdefault("prefilter", False)
-    orders, bounds, ex = normalize_options(
-        kwargs["interpolation"], kwargs["bound"], kwargs["extrapolate"],
-        ndim)
-    _check_ported(image, kwargs["prefilter"], orders, "restrict")
-    out = separable_push(image, lines, tuple(shape), orders, bounds, ex)
+    if torch.is_floating_point(image):
+        orders, bounds, ex = normalize_options(
+            kwargs["interpolation"], kwargs["bound"], kwargs["extrapolate"],
+            ndim)
+        out = separable_push(image, lines, tuple(shape), orders, bounds, ex)
+        if kwargs["prefilter"]:
+            out = spline_coeff_nd(out, orders, bounds, ndim)
+    else:
+        grid = torch.stack(torch.meshgrid(*lines, indexing="ij"), -1)
+        out = grid_push(image, grid, shape, **kwargs)
     if not reduce_sum:
         out = out / fullscale
     return out

@@ -80,13 +80,20 @@ def test_not_ported_yet_raises():
                                prefilter=True, **kw)
         assert tuple(out.shape) == tuple(ref.shape)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    # the calls that raised before the prefilter and the label path were
+    # ported: cubic and mixed orders with the prefilter, an integer map
+    lab = np.floor(2 * img).astype(np.int64)
+    for fn, x, kw in [("grid_pull", img, dict(interpolation=3)),
+                      ("grid_push", img, dict(interpolation=[1, 1, 2])),
+                      ("grid_pull", lab, dict(interpolation=1))]:
+        ref = np.asarray(getattr(itp, fn)(jnp.asarray(x), jnp.asarray(grid),
+                                          prefilter=True, **kw))
+        out = getattr(itt, fn)(torch.as_tensor(x), torch.as_tensor(grid),
+                               prefilter=True, **kw)
+        assert str(out.dtype) == f"torch.{ref.dtype}"
+        assert tuple(out.shape) == ref.shape
+        np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
     img, grid = torch.as_tensor(img), torch.as_tensor(grid)
-    with pytest.raises(NotImplementedError, match="prefilter"):
-        itt.grid_pull(img, grid, interpolation=3, prefilter=True)
-    with pytest.raises(NotImplementedError, match="prefilter"):
-        itt.grid_push(img, grid, interpolation=[1, 1, 2], prefilter=True)
-    with pytest.raises(NotImplementedError, match="label"):
-        itt.grid_pull(img.long(), grid)
     # check_spread is ported: it measures the grid and raises on a
     # broken bound
     with pytest.raises(RuntimeError, match="windowed-contract VIOLATED"):

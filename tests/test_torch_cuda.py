@@ -2,8 +2,9 @@
 dense warp's pull value / grad / hess (``csrc/warp.cu``), push and pushgrad
 (``csrc/push.cu``), in plain and adaptive (``tile_spread``) mode, the
 scattered gather (``csrc/gather.cu``) and splat (``csrc/splat.cu``), the
-deterministic plain cores, the autograd Functions (second order included)
-and the train steps and the pyramid on them.
+deterministic plain cores, the autograd Functions (second order included),
+the train steps and the pyramid on them, and the prefilter (against the
+CPU in float64, with TF32 on) and the label paths on the kernels.
 
 Every test here is marked ``cuda`` and skips where there is no NVIDIA GPU
 (the kernels have no CPU mode).  The file imports no JAX, so it also runs on
@@ -15,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+import interpol_tpu_torch as itt
 from interpol_tpu_torch import (PyramidModel, SVFModel, WarpModel,
-                                grid_grad, grid_pull, grid_push, register,
-                                svf_mse_loss)
-from interpol_tpu_torch.ops import cuda_scattered, cuda_warp
+                                grid_grad, grid_pull, grid_push, options,
+                                register, svf_mse_loss)
+from interpol_tpu_torch.ops import api, cuda_scattered, cuda_warp
+from interpol_tpu_torch.ops import coeff as tc
 from interpol_tpu_torch.ops import ndkernels as nd
 from interpol_tpu_torch.ops import pushpull as tpp
 from interpol_tpu_torch.ops import window as tw
@@ -640,3 +643,162 @@ def test_scattered_gathers_nonfinite_coordinates(cuda_device, ex):
         if ex != 1:
             assert (v[b, :, p] == 0).all()
     assert_close(v[good], ref[good])
+
+
+# ------------------------------------------------ prefilter and labels
+
+@pytest.mark.parametrize("shape,dim,order,bound", [
+    ((2, 40, 50, 60), 3, 3, "dct2"),           # matrix path, every axis
+    ((3, 70, 30), 2, 5, "dct1"),
+    ((2, 2100), 1, 3, "dct1"),                 # blocked-scan path
+    ((3, 2600), 1, 7, "dft"),
+])
+def test_prefilter_card_matches_cpu_float64(cuda_device, shape, dim, order,
+                                            bound):
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(shape))
+    ref = itt.spline_coeff_nd(x, order, bound, dim=dim)
+    out = itt.spline_coeff_nd(x.float().to(cuda_device), order, bound,
+                              dim=dim)
+    assert out.dtype == torch.float32 and out.is_cuda
+    assert_close(out.cpu().double(), ref)
+    # and its exact transpose in the backward, against the CPU's
+    v = torch.randn(shape, dtype=torch.float64)
+    xc = x.clone().requires_grad_()
+    (gc,) = torch.autograd.grad(itt.spline_coeff_nd(xc, order, bound,
+                                                    dim=dim), xc, v)
+    xg = x.float().to(cuda_device).requires_grad_()
+    (gg,) = torch.autograd.grad(itt.spline_coeff_nd(xg, order, bound,
+                                                    dim=dim), xg,
+                                v.float().to(cuda_device))
+    assert_close(gg.cpu().double(), gc)
+
+
+def test_prefilter_exact_with_tf32_on(cuda_device):
+    """The prefilter's products do not move when a caller turns TF32 on
+    for float32 matmuls."""
+    x = torch.randn((1, 1, 64, 72, 80), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0))
+    ref = itt.spline_coeff_nd(x, 3, "dct2", dim=3)
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        # TF32 reaches a plain float32 product on this card...
+        a = torch.randn((512, 512), device=cuda_device)
+        tf32 = (a @ a - (a.double() @ a.double()).float()).abs().max()
+        out = itt.spline_coeff_nd(x, 3, "dct2", dim=3)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    assert tf32.item() > 1e-3
+    # ... but not the prefilter
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("order", range(2, 8))
+def test_resize_identity_on_the_card(cuda_device, order):
+    x = torch.randn((1, 2, 9, 11, 30), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1))
+    for bound in ("dct1", "dct2", "dft"):
+        y = itt.resize(x, shape=list(x.shape[2:]), anchor="e",
+                       interpolation=order, bound=bound, prefilter=True)
+        assert_close(y, x)
+        # and through the dense-warp kernel at the identity
+        g = itt.identity_grid(x.shape[2:], device=cuda_device)[None]
+        y = grid_pull(x, g, order, bound, prefilter=True, max_disp=1.0)
+        assert_close(y, x)
+
+
+def _plain_labels(lab, grid, classes, kw):
+    """The label pull on the plain versions (each class's soft map pulled
+    by the window's plain version or the plain gather core), with the
+    strict argmax from (0, label 0); and the margin between each voxel's
+    top two values, 0 among them."""
+    grid_b, inp, _ = api._preproc(grid, lab)
+    orders, bounds, ex = options.normalize_options(
+        kw.get("interpolation", 1), kw.get("bound", "zero"),
+        kw.get("extrapolate", False), grid.shape[-1])
+    softs = [torch.zeros(inp.shape[:2] + grid_b.shape[1:-1],
+                         device=lab.device)]
+    for c in classes:
+        soft = (inp == c).float()
+        if kw.get("prefilter"):
+            soft = tc.spline_coeff_nd(soft, orders, bounds,
+                                      grid.shape[-1])
+        if "max_disp" in kw:
+            soft = tw._pull_impl_torch(soft, grid_b, orders, bounds, ex,
+                                       kw["max_disp"], None)
+        else:
+            soft = nd.pull_core(soft, grid_b.reshape(grid_b.shape[0], -1,
+                                                     grid_b.shape[-1]),
+                                orders, bounds, ex).reshape(softs[0].shape)
+        softs.append(soft)
+    s = torch.stack(softs)
+    out = torch.zeros_like(s[0], dtype=lab.dtype)
+    pmax = s[0].clone()
+    for c, soft in zip(classes, s[1:]):
+        out[soft > pmax] = c
+        pmax = torch.maximum(pmax, soft)
+    top = s.topk(2, dim=0).values
+    return out, top[0] - top[1]
+
+
+def blobs(device, shape, classes, seed):
+    """A (1, 1, *shape) label map of ``classes`` smooth blobs: the argmax
+    of smoothed noise fields, one per class."""
+    gen = torch.Generator(device).manual_seed(seed)
+    coarse = torch.randn((classes, 1) + tuple(max(2, s // 4) for s in shape),
+                         device=device, generator=gen)
+    fields = itt.resize(coarse, shape=list(shape), interpolation=3,
+                        prefilter=False)
+    return fields.argmax(0, keepdim=True).int()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(interpolation=3, bound="dct2", extrapolate=True, max_disp=2.0),
+    dict(interpolation=1, max_disp=2.0),
+    dict(interpolation=3, bound="dct1", prefilter=True),
+    dict(interpolation=2),
+], ids=["window-cubic", "window-linear", "generic-prefilter", "generic"])
+def test_label_pull_kernel_matches_plain(cuda_device, kw):
+    lab = blobs(cuda_device, (24, 20, 36), 6, 2)
+    _, grid = warp_case(cuda_device, (24, 20, 36), disp=2.0, seed=3, B=1)
+    classes = torch.unique(lab).tolist()
+    before = dict(cuda_warp.LAUNCHES_BY_MODE)
+    out = grid_pull(lab, grid, **kw)
+    if "max_disp" in kw:
+        assert cuda_warp.LAUNCHES_BY_MODE["value"] \
+            == before["value"] + len(classes)
+    ref, margin = _plain_labels(lab, grid, classes, kw)
+    assert out.dtype == torch.int32 and out.shape == ref.shape
+    # float32 sums in another order: labels may differ only where the
+    # plain top two are within 1e-4 (samples outside the volume, where
+    # every soft value is 0, tie too and stay 0)
+    sure = margin > 1e-4
+    assert sure.float().mean().item() > 0.5
+    assert torch.equal(out[sure], ref[sure])
+
+
+def test_label_resize_and_restrict_on_the_card(cuda_device):
+    lab = blobs(cuda_device, (16, 12, 20), 5, 4)
+    classes = torch.unique(lab).tolist()
+    before = dict(cuda_scattered.LAUNCHES_BY_MODE)
+    out = itt.resize(lab, factor=[2, 2, 2], interpolation=3)
+    assert cuda_scattered.LAUNCHES_BY_MODE["sc_value"] \
+        == before["sc_value"] + len(classes)
+    # resize's defaults: centers, bound 'nearest', extrapolate, prefilter
+    lines = [torch.linspace(0, n - 1, 2 * n, device=cuda_device)
+             for n in lab.shape[2:]]
+    grid = torch.stack(torch.meshgrid(*lines, indexing="ij"), -1)
+    ref, margin = _plain_labels(lab, grid, classes, dict(
+        interpolation=3, bound="nearest", extrapolate=True, prefilter=True))
+    assert out.dtype == torch.int32 and out.shape == ref.shape
+    sure = margin > 1e-4
+    assert sure.float().mean().item() > 0.5
+    assert torch.equal(out[sure], ref[sure])
+    out = itt.restrict(lab, factor=[2, 2, 2], interpolation=3,
+                       prefilter=True)
+    assert cuda_scattered.LAUNCHES_BY_MODE["sc_push"] \
+        == before["sc_push"] + 1
+    ref = itt.restrict(lab.cpu(), factor=[2, 2, 2], interpolation=3,
+                       prefilter=True)
+    assert out.dtype == torch.float32
+    assert_close(out.cpu(), ref)

@@ -58,20 +58,19 @@ def test_resize(kw):
 
 
 def test_resize_not_ported_yet():
-    # the default call (order 1, prefilter=True): the prefilter is the
-    # identity at orders 0 and 1, as in the JAX package
+    # the default call (order 1, prefilter=True), and the calls that raised
+    # before the prefilter and the label path were ported: cubic and mixed
+    # orders with the prefilter, and an integer label map
     img = np.random.default_rng(3).standard_normal((1, 2, 4, 5))
-    ref = jr.resize(jnp.asarray(img), factor=2)
-    out = tr.resize(torch.as_tensor(img), factor=2)
-    assert tuple(out.shape) == tuple(ref.shape)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
-    out = tr.resize(torch.as_tensor(img), factor=[2, 2], interpolation=0)
-    ref = jr.resize(jnp.asarray(img), factor=[2, 2], interpolation=0)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
-    img = torch.zeros((1, 1, 4, 4))
-    with pytest.raises(NotImplementedError, match="prefilter"):
-        tr.resize(img, factor=2, interpolation=3)
-    with pytest.raises(NotImplementedError, match="prefilter"):
-        tr.resize(img, factor=[2, 2], interpolation=[1, 2])
-    with pytest.raises(NotImplementedError, match="label"):
-        tr.resize(img.long(), factor=2, prefilter=False)
+    for kw in [dict(factor=2), dict(factor=[2, 2], interpolation=0),
+               dict(factor=2, interpolation=3),
+               dict(factor=[2, 2], interpolation=[1, 2])]:
+        ref = jr.resize(jnp.asarray(img), **kw)
+        out = tr.resize(torch.as_tensor(img), **kw)
+        assert tuple(out.shape) == tuple(ref.shape)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    lab = np.floor(2 * img).astype(np.int64)
+    ref = np.asarray(jr.resize(jnp.asarray(lab), factor=2, prefilter=False))
+    out = tr.resize(torch.as_tensor(lab), factor=2, prefilter=False)
+    assert out.dtype == torch.int64 and tuple(out.shape) == ref.shape
+    np.testing.assert_array_equal(out.numpy(), ref)

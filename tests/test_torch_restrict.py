@@ -77,8 +77,15 @@ def test_restrict_not_ported_yet_raises():
         out = tr.restrict(torch.as_tensor(x), **kw)
         assert tuple(out.shape) == tuple(ref.shape)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
-    img = torch.zeros((1, 1, 8, 8), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="prefilter"):
-        tr.restrict(img, factor=[2, 2], prefilter=True, interpolation=3)
-    with pytest.raises(NotImplementedError, match="label"):
-        tr.restrict(img.long(), factor=[2, 2])
+    # the calls that raised before the prefilter and the label path were
+    # ported: cubic with the prefilter, and an integer label map (splatted
+    # as float32 in both packages: compared at float32's precision)
+    kw = dict(factor=[2, 2], prefilter=True, interpolation=3)
+    ref = jr.restrict(jnp.asarray(x), **kw)
+    out = tr.restrict(torch.as_tensor(x), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+    lab = np.floor(2 * x[:, :1, :, :6]).astype(np.int64)
+    ref = np.asarray(jr.restrict(jnp.asarray(lab), factor=[2, 2]))
+    out = tr.restrict(torch.as_tensor(lab), factor=[2, 2])
+    assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
