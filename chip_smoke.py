@@ -62,7 +62,24 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    index_select, searchsorted, the outliers' sync, patch kernel, overlap
    fold, outlier taps, segsum); the device busy time, idle
    share and heaviest kernels of the two train steps and of one 256^3
-   pyramid level (torch.profiler).
+   pyramid level (torch.profiler);
+7. P12, the multi-device layer (``interpol_tpu_torch.parallel``) on a mesh
+   of one NCCL rank at full width, each call held to the one-device call:
+   the slab-sharded pull / grad / push of P2's 256^3 warp (the window
+   branch: kernels 1a, 1b, 2a) and the gradient through the sharded pull,
+   the point-sharded pull / push of P5's 1M points (kernels 3, 4),
+   ``spline_coeff_nd_sharded`` of 256^3 and ``dryrun_multichip(1)``;
+8. the kernel lab (``ops/lab.py``, ``csrc/lab.cu``): the bf16 pull against
+   its plain version over orders, bounds and a contract-breaking grid,
+   then the lab's runners at the JAX lab's shapes (its main path, launches
+   counted): the FMA probes (float32 at 1/4/8/16 chains, bf16 pairs), the
+   lane gathers (the table in shared memory, and in device memory below
+   L1, inside L2, of kernel 3's 256^3 volume and beyond L2), the bf16 pull
+   beside kernel 1a, kernel 1a under the block shapes of the dense gather
+   and kernel 1d beside it on a smooth field, and the yardsticks
+   (``torch.matmul`` in bf16 and float32, an elementwise FMA chain); each
+   kernel held to its plain version on the same inputs and timed beside
+   its bound.
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -71,8 +88,6 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
-import subprocess
 import time
 from functools import partial
 
@@ -88,7 +103,8 @@ from interpol_tpu_torch import (PyramidModel, SVFModel, WarpModel,
                                 svf_train_step, train_step)
 from interpol_tpu_torch.models import pyramid
 from interpol_tpu_torch.ops import (_build, coeff, cuda_scattered, cuda_warp,
-                                    ndkernels, pushpull, window)
+                                    lab, ndkernels, pushpull, window)
+from interpol_tpu_torch.ops.lab import card_line, cuda_ms, timed_once
 from interpol_tpu_torch.ops.separable import separable_pull
 from interpol_tpu_torch.ops.tiles import default_tile
 from interpol_tpu_torch.ops.window import (
@@ -123,14 +139,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def rel_err(out: torch.Tensor, ref: torch.Tensor, tol: float = TOL):
     """(max |out - ref|, the tolerance it is held to)."""
     err = (out.double() - ref.double()).abs().max().item()
@@ -144,36 +152,6 @@ def hold(errs, mode, tag, out, ref):
     if not e <= t:
         raise AssertionError(f"{tag}: {mode} err {e:.3g} > tol {t:.3g}")
     return e
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median of ``reps`` CUDA-event timings after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def timed_once(fn):
-    """(fn(), its time in ms by CUDA events): one run, for the plain
-    versions that take seconds."""
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end)
 
 
 def with_peak(fn):
@@ -1745,6 +1723,232 @@ def phase_prefilter_labels(card, errs, drive, train, sc) -> None:
         f"{bound_text(8 * N ** 3, ops)} [{card}]")
 
 
+# ------------------------------------------------------------ kernel lab
+# csrc/lab.cu: the counterparts of the JAX kernel lab's Pallas functions
+# (scripts/tpu_kernel_lab*.py), each row of the kernels line: (runner
+# result key, the TPU function's pallas_call it replaces)
+LAB_ROWS = {
+    "lab_fma_f32": ("fma2", "scripts/tpu_kernel_lab.py:347"),
+    "lab_fma_bf16x2": ("fma2bf", "scripts/tpu_kernel_lab.py:347"),
+    "lab_gather_smem": ("smem", "scripts/tpu_kernel_lab5.py:48"),
+    "lab_gather_global": ("hbm", "scripts/tpu_kernel_lab.py:465"),
+    "lab_pull_bf16": ("pull_bf16", "scripts/tpu_kernel_lab2.py:183"),
+}
+# the JAX lab's shapes: the pulls at 128^3, the products 1024^2 x 64, the
+# elementwise chain 256^3 x 64
+LAB_N, LAB_MM, LAB_CHAIN = 128, 1024, (256,) * 3
+PEAK_SOURCE = {"float32": ", data sheet",
+               "bfloat16": ", Hopper white paper, bf16 outside the tensor "
+                           "cores"}
+
+
+def phase_lab_kernels() -> None:
+    """The bf16 pull against its plain version beyond the lab's own case
+    (the runners hold every lab kernel at the lab's shapes): other orders
+    and bounds, the extrapolation masks, a grid that breaks ``max_disp``
+    (the samples it drops read 0 in both)."""
+    with torch.no_grad(), lab.uncounted():
+        vol, grid = lab.lab_case(64, 2.0, DEV, seed=3)
+        wild = grid.clone()
+        wild[..., 0] += 3.0 * (torch.rand(grid.shape[:-1], device=DEV,
+                                          generator=torch.Generator(DEV)
+                                          .manual_seed(4)) < 0.2)
+        for orders, bounds, ex in [((3, 3, 3), (3, 3, 3), 1),
+                                   ((0, 1, 2), (5, 0, 6), 0),
+                                   ((3, 2, 1), (2, 4, 3), 2)]:
+            for name, g in (("contract", grid), ("broken", wild)):
+                out = lab.pull_bf16(vol, g, orders, bounds, ex, 2.0)
+                ref = lab.pull_bf16_plain(vol, g, orders, bounds, ex, 2.0)
+                e, t = rel_err(out, ref, lab.TOL_PULL_BF16)
+                if not (e <= t and torch.equal(out == 0, ref == 0)):
+                    raise AssertionError(f"lab_pull_bf16 {orders} {bounds} "
+                                         f"{ex} {name}: err {e:.3g}")
+                log(f"lab_pull_bf16 64^3 orders {orders} bounds {bounds} "
+                    f"extrapolate {ex}, {name} grid: err vs plain {e:.3g} "
+                    f"(tol {t:.3g})")
+
+
+def phase_lab(card) -> dict:
+    """The kernel lab's main path: its runners at the JAX lab's shapes,
+    the launch counts set to 0 just before and read just after (the
+    launches that hold a kernel to its plain version are not counted).
+    Returns the kernels line's lab rows by name, and the launches."""
+    lab.reset_launches()
+    res = {}
+    for v in lab.FMA_VARIANTS:
+        r = res[v] = lab.fma_probe(v, DEV)
+        log(f"lab fma {v} {r['shape']} reps {r['reps']} nacc {r['nacc']} "
+            f"{r['dtype']}: {r['ms']:.4f} ms, {r['tflop_s']:.2f} TFLOP/s "
+            f"(peak {r['peak_tflop_s']:.1f}{PEAK_SOURCE[r['dtype']]}; bound "
+            f"{r['bound_ms']:.4f} ms), "
+            f"err vs plain {r['max_abs_err']:.3g} (tol {r['tol']:.3g}), "
+            f"plain {r['plain_ms']:.1f} ms [{card}]")
+    for t in lab.GATHER_TABLES:
+        r = res[t] = lab.gather_probe(t, DEV)
+        # a random read from device memory moves a 32-byte sector
+        sectors = "" if r["smem"] else (
+            f", 32-byte sectors {r['sector_mb']:.1f} MB = "
+            f"{r['sector_ms']:.4f} ms: "
+            f"{'sectors' if r['sector_ms'] > r['bound_ms'] else 'bytes'} "
+            f"bound it")
+        log(f"lab gather {t}: table ({r['G']}, {r['S']}, {r['T']}) "
+            f"{r['table_mb']:.1f} MB {'shared' if r['smem'] else 'device'} "
+            f"memory, {r['G'] * r['S'] * r['L']} lanes x {r['reps']} "
+            f"reads: {r['ms']:.4f} ms, {r['greads_s']:.1f} G reads/s; "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){sectors}; "
+            f"err vs plain {r['max_abs_err']:.3g}, plain "
+            f"{r['plain_ms']:.2f} ms [{card}]")
+    r = res["pull_bf16"] = lab.pull_bf16_probe(LAB_N, 2.0, DEV)
+    log(f"lab pull_bf16 {LAB_N}^3 cubic dct2 max_disp 2: {r['ms']:.4f} ms "
+        f"(the f32 pull, kernel 1a: {r['ms_f32']:.4f} ms), bound "
+        f"{r['bound_ms']:.4f} ms, err vs plain {r['max_abs_err']:.3g} (tol "
+        f"{r['tol']:.3g}), vs the f32 pull {r['vs_f32']:.3g}, plain "
+        f"{r['plain_ms']:.1f} ms [{card}]")
+    for r in lab.pull_variants(LAB_N, 2.0, DEV):
+        extra = f", spread {tuple(round(s, 3) for s in r['spread'])}, " \
+            f"vs 1a {r['vs_full']:.3g}" if r.get("spread") else ""
+        log(f"lab pull variant {r['variant']} {LAB_N}^3 cubic dct2 "
+            f"max_disp 2: "
+            f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f}){extra} [{card}]")
+        if r.get("spread") and not r["vs_full"] <= TOL * 10:
+            raise AssertionError(f"1d on smooth_grid: {r['vs_full']:.3g}")
+    for dt in (torch.bfloat16, torch.float32):
+        r = lab.matmul_probe(dt, LAB_MM, 64, DEV)
+        log(f"lab yardstick torch.matmul {r['dtype']} {r['M']}^2 x "
+            f"{r['reps']}: {r['ms']:.3f} ms, {r['tflop_s']:.1f} TFLOP/s "
+            f"[{card}]")
+    r = lab.chain_probe(64, LAB_CHAIN, DEV)
+    log(f"lab yardstick elementwise FMA chain {LAB_CHAIN} x 64 (torch): "
+        f"{r['ms']:.3f} ms, {r['tfma_s']:.3f} T-FMA/s [{card}]")
+    torch.cuda.synchronize()
+    launches = dict(lab.LAUNCHES_BY_MODE)
+    log(f"lab: launches {launches}")
+    rows = {}
+    for name, (key, line) in LAB_ROWS.items():
+        r = res[key]
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": "interpol_tpu_torch/csrc/lab.cu",
+                      "replaces": line, "launches": launches[name],
+                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"], "library_ms": None}
+    return rows
+
+
+# ------------------------------------------------------------ multi-device
+def phase_multidevice(card, errs, drive, main, sc) -> dict:
+    """P12: ``interpol_tpu_torch.parallel`` on a mesh of one NCCL rank at
+    full width, each call held to the one-device call at TOL: the
+    slab-sharded pull / grad / push of P2's 256^3 case (the window branch:
+    kernels 1a, 1b, 2a), the gradient through the sharded pull, the
+    point-sharded pull / push of P5's 1M points (kernels 3, 4),
+    ``spline_coeff_nd_sharded`` of 256^3 and ``dryrun_multichip(1)``.
+    Returns {name: (sharded ms, one-device ms)}."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from interpol_tpu_torch import entry, parallel
+
+    moving, flow = main["moving"], main["flow"]
+    opts = ((3, 3, 3), (3, 3, 3), 1)
+    # the slab ops sample in the halo-extended frame, x + H in float32 (H
+    # the halo; the JAX package's frame too): the one-device references
+    # run on the coordinates that frame holds, (x + H) - H, exactly
+    H = parallel.halo_width(opts[0], 4.0)
+    frame = flow.clone()
+    frame[..., 0] = (flow[..., 0] + H) - H
+    N, P = SC_N, SC_P
+    vol = sc["vol"].reshape(1, 1, N, N, N)
+    pts, vals = sc["pts"].reshape(1, P, 3), sc["vals"].reshape(1, 1, P)
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+            world_size=1, timeout=timedelta(seconds=60))
+        try:
+            mx = init_device_mesh("cuda", (1,), mesh_dim_names=("x",))
+            md = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+            kw = dict(mesh=mx, max_disp=4.0)
+            cases = [
+                ("pull_sharded", lambda: parallel.pull_sharded(
+                    moving, flow, *opts, **kw),
+                 lambda g=frame: window.pull_window(moving, g, *opts, 4.0),
+                 {"value": (1, 1)}),
+                ("grad_sharded", lambda: parallel.grad_sharded(
+                    moving, flow, *opts, **kw),
+                 lambda g=frame: window.grad_window(moving, g, *opts, 4.0),
+                 {"grad": (1, 1)}),
+                ("push_sharded", lambda: parallel.push_sharded(
+                    moving, flow, MAIN_VOL, *opts, **kw),
+                 lambda g=frame: window.push_window(moving, g, *opts, 4.0),
+                 {"push": (1, 1)}),
+                ("pull_points", lambda: parallel.pull_points(
+                    vol, pts, *opts, mesh=md),
+                 lambda: pushpull.pull(vol, pts, *opts),
+                 {"sc_value": (1, 1)}),
+                ("push_points", lambda: parallel.push_points(
+                    vals, pts, (N,) * 3, *opts, mesh=md),
+                 lambda: pushpull.push(vals, pts, (N,) * 3, *opts),
+                 {"sc_push": (1, 1)}),
+                ("spline_coeff_nd_sharded", lambda: (
+                    parallel.spline_coeff_nd_sharded(
+                        moving, (3,) * 3, (3,) * 3, 3, mesh=mx)),
+                 lambda: coeff.spline_coeff_nd(moving, (3,) * 3, (3,) * 3,
+                                               3), {}),
+            ]
+            with torch.no_grad():
+                for name, fn, ref_fn, expect in cases:
+                    out = drive(f"P12 {name} on a one-rank NCCL mesh",
+                                lambda: fn().to_local(), expect)
+                    ref = ref_fn()
+                    e, t = rel_err(out, ref)
+                    if not e <= t:
+                        raise AssertionError(f"P12 {name}: err {e:.3g} > "
+                                             f"{t:.3g}")
+                    times[name] = (cuda_ms(fn, 5), cuda_ms(ref_fn, 5))
+                    log(f"P12 {name}: vs the one-device call err {e:.3g} "
+                        f"(tol {t:.3g}); {times[name][0]:.3f} ms sharded, "
+                        f"{times[name][1]:.3f} ms one-device (median of 5)"
+                        f" [{card}]")
+                    if name in ("pull_sharded", "grad_sharded",
+                                "push_sharded"):
+                        e0 = rel_err(out, ref_fn(flow))[0]
+                        log(f"P12 {name}: vs the one-device call on the "
+                            f"unshifted grid {e0:.3g} (the frame's float32 "
+                            f"rounding of x + {H})")
+                    del out, ref
+
+            def sharded_loss():
+                v = moving.clone().requires_grad_()
+                g = flow.clone().requires_grad_()
+                out = parallel.pull_sharded(v, g, *opts, **kw)
+                loss = (out.full_tensor() ** 2).sum()
+                return torch.autograd.grad(loss, [v, g])
+            dv, dg = drive("P12 gradient of sum(pull_sharded**2) in volume "
+                           "and grid", sharded_loss,
+                           {"grad": (1, 1), "push": (1, 1)})
+            v = moving.clone().requires_grad_()
+            g = frame.clone().requires_grad_()
+            rv, rg = torch.autograd.grad(
+                (window.pull_window(v, g, *opts, 4.0) ** 2).sum(), [v, g])
+            ev, eg = rel_err(dv, rv)[0], rel_err(dg, rg)[0]
+            if not (ev <= rel_err(dv, rv)[1] and eg <= rel_err(dg, rg)[1]):
+                raise AssertionError(f"P12 gradients: {ev:.3g} {eg:.3g}")
+            log(f"P12 gradient through pull_sharded vs one device: volume "
+                f"{ev:.3g}, grid {eg:.3g}")
+            del dv, dg, rv, rg, v, g
+            loss = drive("P12 dryrun_multichip(1)",
+                         lambda: entry.dryrun_multichip(1),
+                         {"value": (1, 1), "grad": (1, 1), "push": (0, 0)})
+            log(f"P12 dryrun_multichip(1): loss {loss:.6f}")
+        finally:
+            dist.destroy_process_group()
+    return times
+
+
 SPLAT_PIECES = (("patch kernel", ("splat_patch_kernel",)),
                 ("overlap fold", ("overlap_fold",)),
                 ("outlier taps", ("outlier_taps",)),
@@ -1889,6 +2093,11 @@ def main() -> None:
     lap("P8-P10")
     phase_prefilter_labels(card, errs, drive, train, sc)
     lap("P11")
+    phase_multidevice(card, errs, drive, main_path, sc)
+    lap("P12")
+    phase_lab_kernels()
+    lab_rows = phase_lab(card)
+    lap("kernel lab")
     times = phase_times(card, errs, main_path, train)
     lap("dense times")
     times.update(phase_sc_times(card, errs, sc))
@@ -1920,7 +2129,10 @@ def main() -> None:
                 "launches": drive.total[m], "max_abs_err": errs[m],
                 **times[m], "library_ms": library.get(m, (None,))[0],
                 "kernel_ms_order1": library.get(m, (None, None))[1]}
-    kernels = [row(m) for m in ALL_MODES]
+    kernels = [row(m) for m in ALL_MODES] + list(lab_rows.values())
+    missing = [r["name"] for r in kernels if not r["launches"]]
+    if missing:
+        raise AssertionError(f"kernels never launched: {missing}")
     log(f"total run time {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

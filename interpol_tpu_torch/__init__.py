@@ -14,10 +14,15 @@ second order and beyond), the separable ``resize`` and ``restrict``,
 with the grid constructors, the deformation-field algebra
 (``ops/flow.py``), and the registration models ``WarpModel`` and
 ``SVFModel`` with their train steps and the coarse-to-fine
-``PyramidModel`` (``register``, ``run_level``, ``image_pyramid``).  CPU
-tensors run plain PyTorch; CUDA tensors run the hand-written Hopper
+``PyramidModel`` (``register``, ``run_level``, ``image_pyramid``), and the
+multi-device layer ``parallel`` (batch, slab and point sharding and the
+sharded prefilter on ``torch.distributed``, imported at first use: its
+``torch.distributed.tensor`` takes a second to import; ``entry.py`` its
+dry run).
+CPU tensors run plain PyTorch; CUDA tensors run the hand-written Hopper
 kernels (``csrc/warp.cu``, ``csrc/push.cu``, ``csrc/gather.cu``,
-``csrc/splat.cu``), built with nvcc at first use.  There is no backend
+``csrc/splat.cu``; ``csrc/lab.cu`` holds the kernel lab's probes,
+``ops/lab.py``), built with nvcc at first use.  There is no backend
 switch: the tensors' device decides, and the models live on the card
 unless the caller asks for the CPU.
 """
@@ -52,3 +57,10 @@ __all__ = [
     "register", "run_level",
     "BoundType", "ExtrapolateType", "InterpolationType", "options",
 ]
+
+
+def __getattr__(name):
+    if name in ("parallel", "entry"):
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

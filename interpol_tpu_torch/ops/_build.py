@@ -27,7 +27,7 @@ __all__ = ["NVCC_FLAGS", "BUILD_DIR", "SOURCES", "load_library",
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("warp", "push", "gather", "splat")
+SOURCES = ("warp", "push", "gather", "splat", "lab")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -153,10 +153,12 @@ def _lift3(inp, grid, orders, bounds, md, deriv=False):
 
 
 def _launch_setup(name, inp, grid, orders, bounds, extrapolate, max_disp,
-                  spread=None, deriv=False, push=False):
+                  spread=None, deriv=False, push=False, block=None):
     """Check the inputs, lift 1-D/2-D to 3-D and fill the kernel
     parameters; in adaptive mode (``spread``) compute the tile bases of
-    the pull family's tiles or, with ``push``, of the push's.  Returns
+    the pull family's tiles or, with ``push``, of the push's.  ``block``:
+    the dense gather's block tile (log2 per axis of the lifted volume),
+    :func:`warp_block`'s by default.  Returns
     (inp3, grid3, params, nd, bases), or None when there is nothing to
     compute; keep ``bases`` alive until the kernel has run."""
     _check_inputs(name, inp, grid, deriv)
@@ -202,7 +204,11 @@ def _launch_setup(name, inp, grid, orders, bounds, extrapolate, max_disp,
                                          dtype=torch.float32))
     p.thr_lo = float(torch.tensor(-thr, dtype=torch.float32))
     p.masked = int(extrapolate != 1)
-    p.block[:] = warp_block(shape3)
+    if block is not None and (len(block) != 3 or sum(block) > 8
+                              or min(block) < 0):
+        raise ValueError(f"{name}: block {block}: three log2 extents of "
+                         f"at most 256 threads")
+    p.block[:] = tuple(block) if block is not None else warp_block(shape3)
     if bases is not None:
         # (3, B, *ntiles3): the lifted axes are one tile of base 0
         tile3 = (1,) * nd + tuple(tile)
@@ -231,7 +237,7 @@ def _call(name, t, *args):
 def warp_cuda(inp: torch.Tensor, grid: torch.Tensor,
               orders: Sequence[int], bounds: Sequence[int],
               extrapolate: int, max_disp, spread=None, value: bool = True,
-              grad: bool = False
+              grad: bool = False, block=None
               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Dense-warp pull and/or spatial gradient on the card.
 
@@ -239,12 +245,15 @@ def warp_cuda(inp: torch.Tensor, grid: torch.Tensor,
     float32, contiguous.  Returns ``(val, grad)``: ``val`` (B, C, *ishape)
     if ``value`` else None, ``grad`` (B, C, *ishape, D) if ``grad`` else
     None.  Same semantics as ``window._pull_impl_torch`` /
-    ``_grad_impl_torch``; ``spread``: the adaptive mode (1d).
+    ``_grad_impl_torch``; ``spread``: the adaptive mode (1d).  ``block``:
+    the block tile, log2 per axis (the schedule knob the kernel lab
+    sweeps; :func:`warp_block`'s by default, and with a base per block the
+    adaptive mode needs a block inside one TPU tile).
     """
     if not (value or grad):
         raise ValueError("nothing to compute")
     setup = _launch_setup("warp_cuda", inp, grid, orders, bounds,
-                          extrapolate, max_disp, spread)
+                          extrapolate, max_disp, spread, block=block)
     B, C = inp.shape[:2]
     ishape = tuple(inp.shape[2:])
     D = len(ishape)

@@ -4,7 +4,9 @@
 PyTorch port of ``interpol_tpu/ops/ndkernels.py`` (``inbounds_mask``
 ``:79-90``, ``pull_core`` ``:221-249``, ``push_core`` ``:252-280``,
 ``count_core`` ``:283-291``, ``grad_core`` ``:294-324``,
-``pushgrad_core`` ``:327-358``, ``hess_core`` ``:361-401``), plus
+``pushgrad_core`` ``:327-358``, ``hess_core`` ``:361-401``; the
+global-folding mode of ``_TapTables`` ``:93-134`` in ``pull_core``,
+``grad_core`` and ``push_core``), plus
 ``pushhess_core``, the adjoint of ``hess_core`` in the image.  These are
 the plain versions of the scattered kernels (``csrc/gather.cu``,
 ``csrc/splat.cu``), the path of every D > 3 cloud on every device, and
@@ -56,20 +58,36 @@ def inbounds_mask(grid: torch.Tensor, ishape: Sequence[int],
 
 
 def _tap_tables(grid, ishape, orders, bounds, need_grad, wdtype,
-                need_hess=False):
+                need_hess=False, fold_shapes=None, shifts=None):
     """Per axis: lists over taps of (folded index, sign or None, weight,
     derivative or None, second derivative or None), each shaped like
-    ``grid[..., 0]``."""
+    ``grid[..., 0]``.
+
+    The global-folding mode (``fold_shapes`` / ``shifts``, the slab-sharded
+    paths of ``parallel/``; ``interpol_tpu/ops/ndkernels.py:93-134``): a tap
+    folds against the global axis length ``fold_shapes[d]``, then maps into
+    the local (halo-extended) buffer of extent ``ishape[d]`` as ``(folded +
+    shifts[d]) % fold_shapes[d]``, which lands circular (dft) edge folds in
+    the ring-exchanged halos.  Indices beyond the local buffer (the taps of
+    points another slab owns, whose values are masked) are clamped into it,
+    as the JAX gather clamps them."""
+    D = grid.shape[-1]
+    fold = tuple(fold_shapes) if fold_shapes is not None else tuple(ishape)
+    shifts = tuple(shifts) if shifts is not None else (None,) * D
     tables = []
     for d, (order, bound) in enumerate(zip(orders, bounds)):
-        n = ishape[d]
+        n = fold[d]
         n0, t = node_origin(grid[..., d].to(wdtype), order)
         w, gr, he = bspline_taps(t, order, grad=need_grad, hess=need_hess)
         axis = []
         for j in range(order + 1):
             node = n0 + j
-            axis.append((fold_index(node, n, bound),
-                         fold_sign(node, n, bound, wdtype), w[j],
+            idx = fold_index(node, n, bound)
+            if shifts[d] is not None:
+                idx = torch.remainder(idx + shifts[d], n)
+            if fold_shapes is not None:
+                idx = torch.clamp(idx, 0, ishape[d] - 1)
+            axis.append((idx, fold_sign(node, n, bound, wdtype), w[j],
                          gr[j] if need_grad else None,
                          he[j] if need_hess else None))
         tables.append(axis)
@@ -96,7 +114,8 @@ def _sign(taps):
     return math.prod(signs) if signs else None
 
 
-def _gather_taps(inp, grid, orders, bounds, need_grad, need_hess=False):
+def _gather_taps(inp, grid, orders, bounds, need_grad, need_hess=False,
+                 fold_shapes=None, shifts=None):
     """Yield (gathered values (B, C, P), per-axis tap tuples) for every
     node of the tap product."""
     D = grid.shape[-1]
@@ -106,7 +125,7 @@ def _gather_taps(inp, grid, orders, bounds, need_grad, need_hess=False):
     flat = inp.reshape(B, C, math.prod(ishape)).to(wdtype)
     strides = [math.prod(ishape[d + 1:]) for d in range(D)]
     tables = _tap_tables(grid, ishape, orders, bounds, need_grad, wdtype,
-                         need_hess)
+                         need_hess, fold_shapes, shifts)
     P = grid.shape[1]
     for taps in itertools.product(*tables):
         lin = sum(t[0] * s for t, s in zip(taps, strides))
@@ -147,7 +166,7 @@ def _fixed_order_add(acc, idx, vals):
 
 
 def _scatter_taps(term_of, grid, oshape, orders, bounds, need_grad,
-                  need_hess, C, wdtype):
+                  need_hess, C, wdtype, fold_shapes=None, shifts=None):
     """Adjoint of :func:`_gather_taps`: for every node of the tap
     product, add ``term_of(taps)`` (B, C, P) times the fold sign at the
     node's folded index, in a fixed order (:func:`_fixed_order_add`).
@@ -157,7 +176,7 @@ def _scatter_taps(term_of, grid, oshape, orders, bounds, need_grad,
     V = math.prod(oshape)
     strides = [math.prod(oshape[d + 1:]) for d in range(D)]
     tables = _tap_tables(grid, oshape, orders, bounds, need_grad, wdtype,
-                         need_hess)
+                         need_hess, fold_shapes, shifts)
     # (C, B * V): one destination index over the batch
     out = torch.zeros((C, B * V), dtype=wdtype, device=grid.device)
     boff = torch.arange(B, device=grid.device)[:, None] * V
@@ -174,16 +193,22 @@ def _scatter_taps(term_of, grid, oshape, orders, bounds, need_grad,
 
 def pull_core(inp: torch.Tensor, grid: torch.Tensor,
               orders: Tuple[int, ...], bounds: Tuple[int, ...],
-              extrapolate: int) -> torch.Tensor:
-    """Sample ``inp`` at ``grid``: (B, C, *ishape), (B, P, D) -> (B, C, P)."""
+              extrapolate: int, fold_shapes=None,
+              shifts=None) -> torch.Tensor:
+    """Sample ``inp`` at ``grid``: (B, C, *ishape), (B, P, D) -> (B, C, P).
+    ``fold_shapes`` / ``shifts``: the global-folding mode of
+    :func:`_tap_tables` (the extrapolation mask then uses the global
+    shape)."""
     D = grid.shape[-1]
     out_dtype, wdtype = _compute_dtypes(inp, grid)
     out = None
-    for val, taps in _gather_taps(inp, grid, orders, bounds, False):
+    for val, taps in _gather_taps(inp, grid, orders, bounds, False,
+                                  fold_shapes=fold_shapes, shifts=shifts):
         w = math.prod(t[2] for t in taps)
         term = val * w[:, None]
         out = term if out is None else out + term
-    mask = inbounds_mask(grid, inp.shape[-D:], extrapolate, wdtype)
+    mask = inbounds_mask(grid, fold_shapes or inp.shape[-D:], extrapolate,
+                         wdtype)
     if mask is not None:
         out = out * mask[:, None]
     return out.to(out_dtype)
@@ -191,18 +216,22 @@ def pull_core(inp: torch.Tensor, grid: torch.Tensor,
 
 def grad_core(inp: torch.Tensor, grid: torch.Tensor,
               orders: Tuple[int, ...], bounds: Tuple[int, ...],
-              extrapolate: int) -> torch.Tensor:
+              extrapolate: int, fold_shapes=None,
+              shifts=None) -> torch.Tensor:
     """Spatial gradient of the spline surface sampled at ``grid``:
-    (B, C, *ishape), (B, P, D) -> (B, C, P, D)."""
+    (B, C, *ishape), (B, P, D) -> (B, C, P, D).  ``fold_shapes`` /
+    ``shifts``: as :func:`pull_core`."""
     D = grid.shape[-1]
     out_dtype, wdtype = _compute_dtypes(inp, grid)
     out = None
-    for val, taps in _gather_taps(inp, grid, orders, bounds, True):
+    for val, taps in _gather_taps(inp, grid, orders, bounds, True,
+                                  fold_shapes=fold_shapes, shifts=shifts):
         terms = [val * _weight(taps, deriv=(da,))[:, None]
                  for da in range(D)]
         term = torch.stack(terms, dim=-1)
         out = term if out is None else out + term
-    mask = inbounds_mask(grid, inp.shape[-D:], extrapolate, wdtype)
+    mask = inbounds_mask(grid, fold_shapes or inp.shape[-D:], extrapolate,
+                         wdtype)
     if mask is not None:
         out = out * mask[:, None, :, None]
     return out.to(out_dtype)
@@ -221,14 +250,16 @@ def _masked(vals, grid, oshape, extrapolate, wdtype, trailing=0):
 
 def push_core(inp: torch.Tensor, grid: torch.Tensor,
               oshape: Tuple[int, ...], orders: Tuple[int, ...],
-              bounds: Tuple[int, ...], extrapolate: int) -> torch.Tensor:
+              bounds: Tuple[int, ...], extrapolate: int, fold_shapes=None,
+              shifts=None) -> torch.Tensor:
     """Splat values ``inp`` at ``grid`` (the adjoint of :func:`pull_core`):
-    (B, C, P), (B, P, D) -> (B, C, *oshape)."""
+    (B, C, P), (B, P, D) -> (B, C, *oshape).  ``fold_shapes`` / ``shifts``:
+    as :func:`pull_core`, ``oshape`` the local buffer."""
     out_dtype, wdtype = _compute_dtypes(inp, grid)
-    val0 = _masked(inp, grid, oshape, extrapolate, wdtype)
+    val0 = _masked(inp, grid, fold_shapes or oshape, extrapolate, wdtype)
     out = _scatter_taps(lambda taps: val0 * _weight(taps)[:, None], grid,
                         oshape, orders, bounds, False, False, inp.shape[1],
-                        wdtype)
+                        wdtype, fold_shapes, shifts)
     return out.to(out_dtype)
 
 

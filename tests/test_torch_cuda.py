@@ -802,3 +802,140 @@ def test_label_resize_and_restrict_on_the_card(cuda_device):
                        prefilter=True)
     assert out.dtype == torch.float32
     assert_close(out.cpu(), ref)
+
+
+# ------------------------------------------------------------ kernel lab
+# csrc/lab.cu against ops/lab.py's plain versions: the FMA chains and the
+# lane gathers to the bit (one rounding per step, the same sums in the same
+# order; the float32 gate allows the plain version's rare double rounding),
+# the bf16 pull at the float32 gate (the same bf16 operands, exact products)
+
+@pytest.mark.parametrize("nacc,dtype,zero", [
+    (1, torch.float32, True), (4, torch.float32, False),
+    (8, torch.float32, False), (16, torch.float32, False),
+    (8, torch.bfloat16, False), (16, torch.bfloat16, True)])
+def test_lab_fma_matches_plain(cuda_device, nacc, dtype, zero):
+    from interpol_tpu_torch.ops import lab
+    gen = torch.Generator(cuda_device).manual_seed(nacc)
+    a = torch.randn((3, 8, 130), generator=gen, device=cuda_device)
+    b = torch.randn((3, 8, 130), generator=gen, device=cuda_device)
+    lab.reset_launches()
+    out = lab.fma(a, b, 64 * nacc, nacc, dtype, zero)
+    name = "lab_fma_bf16x2" if dtype == torch.bfloat16 else "lab_fma_f32"
+    assert lab.LAUNCHES_BY_MODE[name] == 1
+    assert_close(out, lab.fma_plain(a, b, 64 * nacc, nacc, dtype, zero))
+
+
+@pytest.mark.parametrize("G,S,T,L,reps,smem", [
+    (8, 8, 256, 128, 1, True), (3, 8, 2304, 128, 64, True),
+    (3, 8, 2304, 128, 64, False), (1, 8, 2**20, 4096, 4, False),
+    (2, 5, 7, 33, 9, True)])
+def test_lab_gather_matches_plain(cuda_device, G, S, T, L, reps, smem):
+    from interpol_tpu_torch.ops import lab
+    gen = torch.Generator(cuda_device).manual_seed(T)
+    table = torch.randn((G, S, T), generator=gen, device=cuda_device)
+    idx = torch.randint(-T, 2 * T, (G, S, L), generator=gen,
+                        device=cuda_device, dtype=torch.int32)
+    out = lab.gather(table, idx, reps, smem)
+    assert torch.equal(out, lab.gather_plain(table, idx, reps))
+
+
+@pytest.mark.parametrize("orders,bounds,ex,md,brk", [
+    ((3, 3, 3), (3, 3, 3), 1, 2.0, 0.0), ((3, 3, 3), (3, 3, 3), 1, 2.0, 3.0),
+    ((0, 1, 2), (5, 0, 6), 0, 1.5, 0.0), ((3, 2, 1), (2, 4, 3), 2, 1.0, 0.0),
+    ((2, 3, 0), (1, 6, 4), 1, 1.0, 4.0)])
+def test_lab_pull_bf16_matches_plain(cuda_device, orders, bounds, ex, md,
+                                     brk):
+    from interpol_tpu_torch.ops import lab
+    inp, grid = warp_case(cuda_device, (19, 24, 37), disp=md,
+                          break_contract=brk)
+    out = lab.pull_bf16(inp, grid, orders, bounds, ex, md)
+    ref = lab.pull_bf16_plain(inp, grid, orders, bounds, ex, md)
+    assert_close(out, ref)
+    assert torch.equal(out == 0, ref == 0)
+
+
+def test_lab_wrappers_raise(cuda_device):
+    from interpol_tpu_torch.ops import lab
+    a = torch.ones((4, 4), device=cuda_device)
+    with pytest.raises(TypeError):
+        lab.fma(a.double(), a.double(), 8)
+    with pytest.raises(ValueError):
+        lab.fma(a[:, :3], a[:, :3].contiguous(), 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):      # 8 x 8192 floats: 256 KB > 227 KB
+        lab.gather(torch.ones((1, 8, 8192), device=cuda_device),
+                   torch.zeros((1, 8, 4), dtype=torch.int32,
+                               device=cuda_device))
+    with pytest.raises(TypeError):
+        lab.gather(a[None], torch.zeros((1, 4, 2), device=cuda_device))
+    with pytest.raises(ValueError):
+        inp, grid = warp_case(cuda_device, (8, 8, 8))
+        lab.pull_bf16(inp, grid, (5, 3, 3), (3, 3, 3), 1, 1.0)
+
+
+def test_warp_block_knob(cuda_device):
+    # every block shape computes the same sums per voxel
+    inp, grid = warp_case(cuda_device, (19, 24, 37), disp=2.0)
+    opts = ((3, 3, 3), (3, 3, 3), 1, 2.0)
+    ref = cuda_warp.warp_cuda(inp, grid, *opts)[0]
+    for blk in [(0, 0, 5), (3, 3, 2), (0, 1, 7), (2, 2, 0)]:
+        assert torch.equal(cuda_warp.warp_cuda(inp, grid, *opts,
+                                               block=blk)[0], ref)
+    with pytest.raises(ValueError):
+        cuda_warp.warp_cuda(inp, grid, *opts, block=(3, 3, 3))
+
+
+# ------------------------------------------------------------ multi-device
+
+def test_parallel_on_a_mesh_of_one_nccl_rank(cuda_device, tmp_path):
+    # interpol_tpu_torch.parallel on one NCCL rank: each call through the
+    # kernels equals the one-device call
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from interpol_tpu_torch import entry, parallel
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=timedelta(seconds=60))
+    try:
+        mx = init_device_mesh("cuda", (1,), mesh_dim_names=("x",))
+        md = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        inp, grid = warp_case(cuda_device, (24, 16, 40), disp=2.0)
+        opts = ((3, 3, 3), (3, 3, 3), 1)
+        kw = dict(mesh=mx, max_disp=2.0)
+        # the slab ops sample in the halo frame, x + H in float32: hold
+        # them to the one-device ops at those coordinates
+        H = parallel.halo_width(opts[0], 2.0)
+        frame = grid.clone()
+        frame[..., 0] = (grid[..., 0] + H) - H
+        cuda_warp.reset_launches()
+        for fn, ref in [
+                (parallel.pull_sharded, tw.pull_window),
+                (parallel.grad_sharded, tw.grad_window)]:
+            assert_close(fn(inp, grid, *opts, **kw).to_local(),
+                         ref(inp, frame, *opts, 2.0))
+        assert_close(parallel.push_sharded(inp, grid, (24, 16, 40), *opts,
+                                           **kw).to_local(),
+                     tw.push_window(inp, frame, *opts, 2.0))
+        counts = cuda_warp.LAUNCHES_BY_MODE
+        assert counts["value"] >= 2 and counts["grad"] >= 2 \
+            and counts["push"] >= 2
+        vol = inp[:, :1]
+        pts = grid.reshape(1, -1, 3) * 1.3 - 2.0
+        vals = inp[:, :1].reshape(1, 1, -1)
+        cuda_scattered.reset_launches()
+        assert_close(parallel.pull_points(vol, pts, *opts, mesh=md)
+                     .to_local(), tpp.pull(vol, pts, *opts))
+        assert_close(parallel.push_points(vals, pts, (24, 16, 40), *opts,
+                                          mesh=md).to_local(),
+                     tpp.push(vals, pts, (24, 16, 40), *opts))
+        assert cuda_scattered.LAUNCHES_BY_MODE["sc_value"] >= 1
+        assert cuda_scattered.LAUNCHES_BY_MODE["sc_push"] >= 1
+        assert_close(parallel.spline_coeff_nd_sharded(
+            inp, (3,) * 3, (3,) * 3, 3, mesh=mx).to_local(),
+            tc.spline_coeff_nd(inp, (3,) * 3, (3,) * 3, 3))
+        assert np.isfinite(entry.dryrun_multichip(1))
+    finally:
+        dist.destroy_process_group()
