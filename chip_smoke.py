@@ -36,7 +36,17 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    scattered forward (``grid_pull``, ``grid_grad``, ``grid_push``,
    ``grid_count`` of 1M points in 256^3, cubic dct2), P6 its gradients
    (and P6b a second order), P7 an affine reslice of 256^3 and the
-   gradient of its MSE in volume and matrix; P8 ``train_step`` x3 of the
+   gradient of its MSE in volume and matrix; P13 the scattered tier's
+   public functions (``ops/scattered.py``) on P5's data: the expert path
+   (``auto_box``, ``precompute_tables``, 3 steps of gradient ascent on
+   ``pull_scattered`` / ``grad_scattered`` with ``pre=``), the six
+   functions once each (``pre=`` equal to no ``pre``, the splats equal
+   across two runs, ``interpret=True`` refused), the gradient of
+   ``sum(pull_scattered)`` in volume and points, a 2-D cloud (1M points
+   in 4096^2) and a 1-D one (100k points on 65536 samples),
+   ``examples/torch_scattered.py``, and the times with and without
+   ``pre=`` beside ``grid_pull`` / ``grid_grad`` in turns; P8
+   ``train_step`` x3 of the
    P2 model with ``tile_spread="auto"``, P9 ``register`` of a
    ``PyramidModel`` (256^3, coarse 8^3, 3 levels 64^3 / 128^3 / 256^3,
    cubic, dct2, ``max_disp=4``, 20 steps per level, ``tile_spread="auto"``)
@@ -77,7 +87,9 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    L1, inside L2, of kernel 3's 256^3 volume and beyond L2), the bf16 pull
    beside kernel 1a, kernel 1a under the block shapes of the dense gather
    and kernel 1d beside it on a smooth field, and the yardsticks
-   (``torch.matmul`` in bf16 and float32, an elementwise FMA chain); each
+   (``torch.matmul`` in bf16 and float32, an elementwise FMA chain;
+   ``torch.gather`` of the lane gather's reads, ``index_select`` of the
+   sweeps' 16-byte rows); each
    kernel held to its plain version on the same inputs and timed beside
    its bound.
 
@@ -88,6 +100,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import time
 from functools import partial
 
@@ -103,7 +116,8 @@ from interpol_tpu_torch import (PyramidModel, SVFModel, WarpModel,
                                 svf_train_step, train_step)
 from interpol_tpu_torch.models import pyramid
 from interpol_tpu_torch.ops import (_build, coeff, cuda_scattered, cuda_warp,
-                                    lab, ndkernels, pushpull, window)
+                                    lab, ndkernels, pushpull, scattered,
+                                    window)
 from interpol_tpu_torch.ops.lab import card_line, cuda_ms, timed_once
 from interpol_tpu_torch.ops.separable import separable_pull
 from interpol_tpu_torch.ops.tiles import default_tile
@@ -127,6 +141,8 @@ ALL_MODES = MODES + AD_MODES + SC_MODES
 # the scattered paths: 1M points into 256^3 (scripts/bench_suite.py:183)
 SC_N, SC_P = 256, 1_000_000
 SC_OPTS = ((3, 3, 3), (3, 3, 3), 1)
+# P13's lifted clouds: (D, samples per axis, points)
+SC_LIFT = ((2, 4096, 1_000_000), (1, 65536, 100_000))
 DEV = "cuda"
 PLAIN = {"_pull": _pull_impl_torch, "_grad": _grad_impl_torch,
          "_hess": _hess_impl_torch, "_push": _push_impl_torch,
@@ -966,6 +982,190 @@ def phase_sc_main(errs, drive) -> dict:
     return dict(vol=vol, pts=pts, vals=vals, mat=mat_t)
 
 
+# the public functions of ops/scattered.py: (function, kernel mode)
+SC_PUBLIC = (("pull_scattered", "sc_value"), ("grad_scattered", "sc_grad"),
+             ("hess_scattered", "sc_hess"), ("push_scattered", "sc_push"),
+             ("pushgrad_scattered", "sc_pushgrad"),
+             ("count_scattered", "sc_push"))
+
+
+def sc_public_plain(name, inp, grid, oshape, opts):
+    """The plain core of a public scattered function, unbatched."""
+    if name == "count_scattered":
+        return ndkernels.count_core(grid[None], oshape, *opts)[0]
+    core = {"pull_scattered": ndkernels.pull_core,
+            "grad_scattered": ndkernels.grad_core,
+            "hess_scattered": ndkernels.hess_core,
+            "push_scattered": ndkernels.push_core,
+            "pushgrad_scattered": ndkernels.pushgrad_core}[name]
+    args = (inp[None], grid[None]) + ((oshape,) if "push" in name else ())
+    return core(*args, *opts)[0]
+
+
+def sc_public_all(tag, errs, drive, vol, pts, opts, seed):
+    """Every public scattered function once on ``vol`` (C, *shape) and
+    ``pts`` (P, D) in one driven run, each held to its plain core on the
+    same inputs; the gathers with pre= equal without, the splats equal
+    across two runs, interpret=True refused.  Returns the outputs."""
+    shape = tuple(vol.shape[1:])
+    C, (P, D) = vol.shape[0], pts.shape
+    vals = cotangent((C, P), seed)
+    ct = cotangent((C, P, D), seed + 1)
+    box = scattered.auto_box(shape, P)
+    first = {"push_scattered": vals, "pushgrad_scattered": ct,
+             "count_scattered": None}
+
+    def call(name, **kw):
+        fn = getattr(scattered, name)
+        if name == "count_scattered":
+            return fn(pts, shape, *opts, **kw)
+        if name in first:
+            return fn(first[name], pts, shape, *opts, **kw)
+        return fn(vol, pts, *opts, **kw)
+    with torch.no_grad():
+        outs = drive(f"{tag}: the six public functions",
+                     lambda: [call(n) for n, _ in SC_PUBLIC],
+                     {"sc_value": (1, 1), "sc_grad": (1, 1),
+                      "sc_hess": (1, 1), "sc_push": (2, 2),
+                      "sc_pushgrad": (1, 1)})
+        pre = scattered.precompute_tables(vol, *opts[:2], box)
+        for (name, mode), out in zip(SC_PUBLIC, outs):
+            inp = first.get(name, vol)
+            e = hold(errs, mode, f"{tag} {name}", out,
+                     sc_public_plain(name, inp, pts, shape, opts))
+            if name in first:
+                again = call(name)
+            else:
+                again = call(name, box=box, pre=pre)
+            if not torch.equal(again, out):
+                raise AssertionError(f"{tag} {name}: a second run (the "
+                                     f"gathers with pre=) differs")
+            try:
+                call(name, interpret=True)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"{tag} {name}: interpret=True ran on "
+                                     f"the card")
+            log(f"{tag}: {name} {tuple(out.shape)} ({mode}) vs plain: err "
+                f"{e:.3g}; {'a second run' if name in first else 'pre='} "
+                f"torch.equal; interpret=True refused")
+    finite(tag, *outs)
+    return outs
+
+
+def phase_sc_public(card, errs, drive, sc) -> None:
+    """P13: the scattered tier's public functions (``ops/scattered.py``)
+    on P5's data (1M points in 256^3, cubic, dct2, extrapolate): the
+    expert path (``auto_box``, ``precompute_tables``, three steps of
+    gradient ascent on ``pull_scattered`` / ``grad_scattered`` with
+    ``pre=``), the six functions once each, the autograd gradient of
+    ``sum(pull_scattered)`` in volume and points, a 2-D cloud (1M points
+    in a 4096^2 plane) and a 1-D one (100k points on 65536 samples) for
+    the lift, ``examples/torch_scattered.py`` on the card, and the times
+    of ``pull_scattered`` / ``grad_scattered`` with and without ``pre=``
+    beside ``grid_pull`` / ``grid_grad`` on the same cloud, in turns."""
+    import importlib.util
+    import os
+
+    vol, pts = sc["vol"], sc["pts"]
+    N, P = SC_N, SC_P
+    opts = SC_OPTS
+    shape = (N,) * 3
+    box = scattered.auto_box(shape, P)
+    pre = scattered.precompute_tables(vol, *opts[:2], box)
+    if pre.shape != (1,) + shape or pre.data_ptr() != vol.data_ptr():
+        raise AssertionError(f"P13: precompute_tables {tuple(pre.shape)} "
+                             f"is not the float32 volume itself")
+
+    def expert():
+        moved, means = pts, []
+        for _ in range(3):
+            v = scattered.pull_scattered(vol, moved, *opts, box=box, pre=pre)
+            dv = scattered.grad_scattered(vol, moved, *opts, box=box,
+                                          pre=pre)
+            moved = moved + 0.5 * dv[0]
+            means.append(v.mean().item())
+        return moved, means
+    with torch.no_grad(), ScSpy() as spy:
+        moved, means = drive(
+            f"P13: the expert path, auto_box {box}, precompute_tables, 3 "
+            f"steps of pull_scattered + grad_scattered with pre= on {P} "
+            f"points in {N}^3", expert, {"sc_value": (3, 3),
+                                         "sc_grad": (3, 3)})
+        spy.hold(errs, "P13 expert path", ["sc_value", "sc_grad"])
+    finite("P13 expert path", moved)
+    if not means[2] > means[0]:
+        raise AssertionError(f"P13: gradient ascent did not brighten the "
+                             f"points: {means}")
+    log(f"P13 expert path: mean value per step "
+        f"{[round(m, 6) for m in means]}")
+
+    sc_public_all(f"P13 3-D {P} points in {N}^3", errs, drive, vol, pts,
+                  opts, 60)
+
+    vr, pr = vol.clone().requires_grad_(), pts.clone().requires_grad_()
+
+    def autograd():
+        loss = scattered.pull_scattered(vr, pr, *opts).sum()
+        return torch.autograd.grad(loss, [vr, pr])
+    with ScSpy() as spy:
+        dv, dp = drive(f"P13: gradient of sum(pull_scattered) in volume and "
+                       f"points, {P} points in {N}^3", autograd,
+                       {"sc_value+grad": (1, 1), "sc_push": (1, 1),
+                        "sc_value": (0, 0)})
+        spy.hold(errs, "P13 autograd", ["sc_value+grad", "sc_push"])
+    finite("P13 autograd", dv, dp)
+    del vr, pr, dv, dp
+
+    rng = np.random.default_rng(13)
+    f32 = dict(dtype=torch.float32, device=DEV)
+    for D, n, p in SC_LIFT:
+        img = torch.tensor(rng.standard_normal((1,) + (n,) * D), **f32)
+        cloud = torch.tensor(rng.uniform(0, n - 1, (p, D)), **f32)
+        sc_public_all(f"P13 {D}-D {p} points in {n}^{D}", errs, drive, img,
+                      cloud, ((3,) * D, (3,) * D, 1), 70 + D)
+        del img, cloud
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch_scattered.py")
+    spec = importlib.util.spec_from_file_location("torch_scattered", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    moved = drive("P13: examples/torch_scattered.py on the card",
+                  lambda: example.main(DEV),
+                  {"sc_value": (4, 4), "sc_value+grad": (1, 1),
+                   "sc_grad": (3, 3)})
+    finite("P13 example", moved)
+
+    pts_g = pts.reshape(P, 1, 1, 3)
+    cubic = dict(interpolation=3, bound="dct2", extrapolate=True)
+    rows = [("pull_scattered, pre=",
+             lambda: scattered.pull_scattered(vol, pts, *opts, box=box,
+                                              pre=pre)),
+            ("pull_scattered",
+             lambda: scattered.pull_scattered(vol, pts, *opts)),
+            ("grid_pull", lambda: grid_pull(vol, pts_g, **cubic)),
+            ("grad_scattered, pre=",
+             lambda: scattered.grad_scattered(vol, pts, *opts, box=box,
+                                              pre=pre)),
+            ("grad_scattered",
+             lambda: scattered.grad_scattered(vol, pts, *opts)),
+            ("grid_grad", lambda: grid_grad(vol, pts_g, **cubic))]
+    # in turns: six rounds, the order reversed every other round, so that
+    # no row always runs first
+    times = {name: [] for name, _ in rows}
+    with torch.no_grad():
+        for k in range(6):
+            for name, fn in rows[::1 if k % 2 == 0 else -1]:
+                times[name].append(cuda_ms(fn, 20, 2))
+    for name, ts in times.items():
+        log(f"time P13 {name} {P} points in {N}^3 C=1 cubic dct2 "
+            f"extrapolate: {statistics.median(ts):.4f} ms (median of 6 "
+            f"rounds in turns, each a median of 20 after 2; rounds "
+            f"{', '.join(f'{t:.4f}' for t in ts)}) [{card}]")
+
+
 def phase_sc_times(card, errs, sc) -> dict:
     """Each scattered mode at P5's shapes (1M points, 256^3, cubic dct2
     extrapolate, C=1), and P7's reslice: kernel and plain times, peak
@@ -1797,7 +1997,15 @@ def phase_lab(card) -> dict:
             f"reads: {r['ms']:.4f} ms, {r['greads_s']:.1f} G reads/s; "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){sectors}; "
             f"err vs plain {r['max_abs_err']:.3g}, plain "
-            f"{r['plain_ms']:.2f} ms [{card}]")
+            f"{r['plain_ms']:.2f} ms; library: torch.gather of the same "
+            f"{r['G'] * r['S'] * r['L'] * r['reps']} reads "
+            f"{r['lib_gather_ms']:.4f} ms (the sum over reads undone; err "
+            f"of its sum vs plain {r['lib_gather_err']:.3g})"
+            + ("" if r["lib_rows_ms"] is None else
+               f", index_select of the {r['G'] * r['S'] * r['L']} 16-byte "
+               f"rows {r['lib_rows_ms']:.4f} ms as 4 floats, "
+               f"{r['lib_rows16_ms']:.4f} ms as one complex128")
+            + f" [{card}]")
     r = res["pull_bf16"] = lab.pull_bf16_probe(LAB_N, 2.0, DEV)
     log(f"lab pull_bf16 {LAB_N}^3 cubic dct2 max_disp 2: {r['ms']:.4f} ms "
         f"(the f32 pull, kernel 1a: {r['ms_f32']:.4f} ms), bound "
@@ -1831,7 +2039,8 @@ def phase_lab(card) -> dict:
                       "replaces": line, "launches": launches[name],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"], "library_ms": None}
+                      "bound_by": r["bound_by"],
+                      "library_ms": r.get("lib_gather_ms")}
     return rows
 
 
@@ -2089,6 +2298,8 @@ def main() -> None:
     lap("main path, P2-P4")
     sc = phase_sc_main(errs, drive)
     lap("P5-P7")
+    phase_sc_public(card, errs, drive, sc)
+    lap("P13")
     ad = phase_adaptive_main(card, errs, drive, train)
     lap("P8-P10")
     phase_prefilter_labels(card, errs, drive, train, sc)

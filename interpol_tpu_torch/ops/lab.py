@@ -491,7 +491,41 @@ def gather_probe(table: str = "smem", device="cuda", reps_t: int = 20,
                bound_by=b_by, sector_mb=sector_bytes / 1e6,
                sector_ms=sector_bytes / HBM_BYTES_PER_S * 1e3,
                card=card_line())
+    res.update(_gather_library(tbl, idx, r, reps_t, check))
     return res
+
+
+def _gather_library(tbl, idx, r, reps_t, check):
+    """The library calls beside the lane gather, timed and used nowhere
+    else: ``torch.gather`` of the same lanes (each lane's ``r`` chained
+    reads as (G, S, L*r) indices, built beforehand; the sum over ``r`` is
+    left undone), and, where a lane reads one run of 4 entries from device
+    memory (the random-row sweeps), ``index_select`` of the 16-byte rows
+    that hold the runs: of the (rows, 4) float32 view, and of the same
+    rows viewed as one 16-byte (complex128) element each."""
+    G, S, T = tbl.shape
+    L = idx.shape[-1]
+    kk = torch.remainder(idx.long()[..., None]
+                         + torch.arange(r, device=tbl.device), T)
+    kk = kk.reshape(G, S, L * r)
+    out = {"lib_gather_ms": cuda_ms(lambda: torch.gather(tbl, 2, kk),
+                                    reps_t, 2), "lib_rows_ms": None,
+           "lib_rows16_ms": None}
+    if check:
+        lib = torch.gather(tbl, 2, kk).reshape(G, S, L, r).sum(-1)
+        ref = gather_plain(tbl, idx, r)
+        out["lib_gather_err"] = (lib - ref).abs().max().item()
+    del kk
+    if r == 4 and T % 4 == 0 and L * S * G > 2**20:
+        rows = tbl.reshape(-1, 4)
+        base = (torch.arange(G * S, device=tbl.device) * T).reshape(G, S, 1)
+        ridx = ((base + idx.long()) // 4).reshape(-1)
+        out["lib_rows_ms"] = cuda_ms(
+            lambda: torch.index_select(rows, 0, ridx), reps_t, 2)
+        rows16 = rows.view(torch.complex128)[:, 0]
+        out["lib_rows16_ms"] = cuda_ms(
+            lambda: torch.index_select(rows16, 0, ridx), reps_t, 2)
+    return out
 
 
 def smooth_grid(N: int, max_disp: float, seed: int = 0, coarse: int = 2,

@@ -9,6 +9,8 @@ recursion evaluated for all ``order+1`` support taps at once,
 
 with first and second derivatives read off levels p-1 and p-2.  The CUDA
 kernel (``csrc/warp.cu``) runs the same recursion per voxel in registers.
+``bspline_weight`` / ``bspline_grad`` / ``bspline_hess`` evaluate the basis
+function itself at any positions (``splines.py:164-200``).
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
-__all__ = ["node_origin", "bspline_taps"]
+__all__ = ["node_origin", "bspline_taps", "bspline_weight", "bspline_grad",
+           "bspline_hess"]
 
 
 def node_origin(g: torch.Tensor, order: int) -> Tuple[torch.Tensor,
@@ -111,3 +114,36 @@ def bspline_taps(t: torch.Tensor, order: int,
                      for j in range(p + 1)]
 
     return weights, grads, hesss
+
+
+def _pointwise(x: torch.Tensor, order: int, which: str) -> torch.Tensor:
+    """beta_p (or a derivative) at positions ``x``: with ``n0 = floor(x -
+    (p-1)/2)`` the tap at node 0 (``j = -n0``) is the value; a position
+    outside the support selects no tap and gives 0."""
+    n0, t = node_origin(x, order)
+    w, g, h = bspline_taps(t, order, grad=(which == "grad"),
+                           hess=(which == "hess"))
+    taps = {"weight": w, "grad": g, "hess": h}[which]
+    out = torch.zeros_like(t)
+    for j, tap in enumerate(taps):
+        out = out + torch.where(n0 == -j, tap, 0)
+    return out
+
+
+def bspline_weight(x, order: int) -> torch.Tensor:
+    """``beta_order(x)``, the centred uniform B-spline basis function."""
+    return _pointwise(torch.as_tensor(x), order, "weight")
+
+
+def bspline_grad(x, order: int) -> torch.Tensor:
+    """First derivative ``beta_order'(x)`` (0 at order 0)."""
+    if order == 0:
+        return torch.zeros_like(torch.as_tensor(x))
+    return _pointwise(torch.as_tensor(x), order, "grad")
+
+
+def bspline_hess(x, order: int) -> torch.Tensor:
+    """Second derivative ``beta_order''(x)`` (0 at orders 0 and 1)."""
+    if order in (0, 1):
+        return torch.zeros_like(torch.as_tensor(x))
+    return _pointwise(torch.as_tensor(x), order, "hess")

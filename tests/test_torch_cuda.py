@@ -4,7 +4,8 @@ dense warp's pull value / grad / hess (``csrc/warp.cu``), push and pushgrad
 scattered gather (``csrc/gather.cu``) and splat (``csrc/splat.cu``), the
 deterministic plain cores, the autograd Functions (second order included),
 the train steps and the pyramid on them, and the prefilter (against the
-CPU in float64, with TF32 on) and the label paths on the kernels.
+CPU in float64, with TF32 on) and the label paths on the kernels, and the
+scattered tier's public functions (``ops/scattered.py``).
 
 Every test here is marked ``cuda`` and skips where there is no NVIDIA GPU
 (the kernels have no CPU mode).  The file imports no JAX, so it also runs on
@@ -24,6 +25,7 @@ from interpol_tpu_torch.ops import api, cuda_scattered, cuda_warp
 from interpol_tpu_torch.ops import coeff as tc
 from interpol_tpu_torch.ops import ndkernels as nd
 from interpol_tpu_torch.ops import pushpull as tpp
+from interpol_tpu_torch.ops import scattered as sc
 from interpol_tpu_torch.ops import window as tw
 
 pytestmark = pytest.mark.cuda
@@ -939,3 +941,108 @@ def test_parallel_on_a_mesh_of_one_nccl_rank(cuda_device, tmp_path):
         assert np.isfinite(entry.dryrun_multichip(1))
     finally:
         dist.destroy_process_group()
+
+
+# the scattered tier's public functions (ops/scattered.py): orders 0-7 over
+# the bounds, D = 1/2/3, C = 1/2/3, points outside both ends of every axis
+PUBLIC_SC = [
+    ((0, 1, 2), (0, 1, 2), 1, (9, 10, 11), 400, 3),
+    ((3, 3, 3), (3, 3, 3), 1, (21, 22, 23), 3000, 1),
+    ((4, 5, 6), (4, 5, 6), 0, (9, 10, 11), 300, 2),
+    ((7, 7, 7), (6, 5, 4), 2, (8, 9, 10), 200, 3),
+    ((3, 1), (3, 4), 0, (33, 18), 700, 2),
+    ((5, 0), (6, 1), 1, (20, 21), 500, 1),
+    ((7,), (2,), 1, (40,), 100, 2),
+    ((2,), (5,), 2, (40,), 100, 3),
+]
+SC_FUNCS = ("pull_scattered", "grad_scattered", "hess_scattered")
+
+
+def _public_sc(inp, grid, vals, ct, ish, opts, **kw):
+    spl = {k: v for k, v in kw.items() if k != "pre"}
+    return [getattr(sc, f)(inp, grid, *opts, **kw) for f in SC_FUNCS] + [
+        sc.push_scattered(vals, grid, ish, *opts, **spl),
+        sc.pushgrad_scattered(ct, grid, ish, *opts, **spl),
+        sc.count_scattered(grid, ish, *opts, **spl)]
+
+
+@pytest.mark.parametrize("orders,bounds,ex,ish,P,C", PUBLIC_SC)
+def test_public_scattered_functions_match_plain(cuda_device, orders, bounds,
+                                                ex, ish, P, C):
+    inp, grid = sc_case(cuda_device, ish, P, B=1, C=C, seed=7)
+    inp, grid = inp[0], grid[0]
+    D = len(ish)
+    gen = torch.Generator(cuda_device).manual_seed(8)
+    vals = torch.randn((C, P), device=cuda_device, generator=gen)
+    ct = torch.randn((C, P, D), device=cuda_device, generator=gen)
+    opts = (orders, bounds, ex)
+    before = dict(cuda_scattered.LAUNCHES_BY_MODE)
+    outs = _public_sc(inp, grid, vals, ct, ish, opts)
+    launched = {m: cuda_scattered.LAUNCHES_BY_MODE[m] - before[m]
+                for m in before}
+    assert launched == {"sc_value": 1, "sc_grad": 1, "sc_hess": 1,
+                        "sc_value+grad": 0, "sc_grad+hess": 0, "sc_push": 2,
+                        "sc_pushgrad": 1, "sc_pushhess": 0}
+    i, g = inp[None], grid[None]
+    refs = [nd.pull_core(i, g, *opts), nd.grad_core(i, g, *opts),
+            nd.hess_core(i, g, *opts),
+            nd.push_core(vals[None], g, ish, *opts),
+            nd.pushgrad_core(ct[None], g, ish, *opts),
+            nd.count_core(g, ish, *opts)]
+    for out, ref in zip(outs, refs):
+        assert out.shape == ref.shape[1:]
+        assert_close(out, ref[0])
+    assert torch.equal(outs[2], outs[2].transpose(-1, -2))
+    # pre= reads the same values; the splats repeat bit for bit; any box
+    box = sc.auto_box(ish, P)
+    pre = sc.precompute_tables(inp, orders, bounds, box)
+    for kw in (dict(box=box, pre=pre), {}, dict(box=(2,) * D)):
+        for a, b in zip(_public_sc(inp, grid, vals, ct, ish, opts, **kw),
+                        outs):
+            assert torch.equal(a, b)
+    # the card has no plain path to interpret with
+    for f in SC_FUNCS:
+        with pytest.raises(ValueError, match="interpret"):
+            getattr(sc, f)(inp, grid, *opts, interpret=True)
+    with pytest.raises(ValueError, match="interpret"):
+        sc.push_scattered(vals, grid, ish, *opts, interpret=True)
+    with pytest.raises(ValueError, match="interpret"):
+        sc.count_scattered(grid, ish, *opts, interpret=True)
+
+
+def _public_sc_grads(device, D):
+    """Volume and point gradients of sum(pull**2) + sum(grad**2) through
+    pre= (from the volume), and the second order in the points."""
+    inp, grid = sc_case("cpu", (13, 14, 15)[:D], 600, B=1, C=2, seed=9)
+    opts = ((3, 2, 5)[:D], (3, 6, 1)[:D], 1)
+    box = (8,) * D
+    vr = inp[0].to(device).requires_grad_()
+    pr = grid[0].to(device).requires_grad_()
+    pre = sc.precompute_tables(vr, *opts[:2], box)
+    loss = (sc.pull_scattered(vr, pr, *opts, box=box, pre=pre) ** 2).sum() \
+        + (sc.grad_scattered(vr, pr, *opts, box=box, pre=pre) ** 2).sum()
+    dv, dp = torch.autograd.grad(loss, [vr, pr], create_graph=True)
+    dv2, dp2 = torch.autograd.grad(dp.square().sum(), [vr, pr])
+    return [t.detach().cpu() for t in (dv, dp, dv2, dp2)]
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_public_scattered_autograd_card_matches_cpu(cuda_device, D):
+    for a, b in zip(_public_sc_grads(cuda_device, D),
+                    _public_sc_grads("cpu", D)):
+        assert_close(a, b, STEP_TOL)
+
+
+def test_pre_from_another_volume_on_the_card(cuda_device):
+    inp, grid = sc_case(cuda_device, (11, 12, 13), 800, B=1, C=2, seed=10)
+    other, _ = sc_case(cuda_device, (11, 12, 13), 1, B=1, C=2, seed=11)
+    opts = ((3, 3, 3), (3, 3, 3), 1)
+    box = (4, 4, 4)
+    ct = torch.randn((2, 800), device=cuda_device)
+    vr = inp[0].clone().requires_grad_()
+    pre = sc.precompute_tables(other[0], *opts[:2], box)
+    out = sc.pull_scattered(vr, grid[0], *opts, box=box, pre=pre)
+    assert torch.equal(out, sc.pull_scattered(other[0], grid[0], *opts))
+    (dv,) = torch.autograd.grad(out, [vr], ct)
+    assert torch.equal(dv, sc.push_scattered(ct, grid[0], (11, 12, 13),
+                                             *opts))

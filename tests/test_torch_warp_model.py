@@ -59,7 +59,8 @@ def test_params_and_config_carry_over():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, interpol_tpu_torch; "
+    code = ("import sys, interpol_tpu_torch, "
+            "interpol_tpu_torch.ops.scattered; "
             "sys.exit(int(any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('interpol_tpu.') or m == 'interpol_tpu' "
             "for m in sys.modules)))")
