@@ -20,7 +20,9 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    plain cores over orders 0-7, the seven bounds, extrapolate 0/1/2,
    D = 1/2/3, points outside the volume, another output shape and a
    dense cloud; fused modes equal to single ones, every splat equal
-   across two runs; then the adaptive modes (``tile_spread``: value_ad,
+   across two runs and under other launch geometries (the dense push
+   without its patch, the scattered splat direct and by box patches);
+   then the adaptive modes (``tile_spread``: value_ad,
    grad_ad, hess_ad, push_ad, pushgrad_ad) against their plain versions
    on grids that break the declared spread (taps dropped), over orders
    0/1/3/5, bounds, D = 1/2/3, and the wide windows (``max_disp=8`` in one
@@ -68,9 +70,9 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    at 256^3 (``max_disp=4``, and value / push at ``max_disp=8``), held to
    its plain version and to the full window; a torch.profiler breakdown
    of one scattered splat (sc_push of 1M points at order 1 and cubic,
-   P7's 16.7M) into its pieces (elementwise key passes, sort,
-   index_select, searchsorted, the outliers' sync, patch kernel, overlap
-   fold, outlier taps, segsum); the device busy time, idle
+   P7's 16.7M) into its pieces (the workspace's zeroing, scale, splat
+   kernel, convert; the box design's key passes, sort, index_select,
+   searchsorted) and the host's waits; the device busy time, idle
    share and heaviest kernels of the two train steps and of one 256^3
    pyramid level (torch.profiler);
 7. P12, the multi-device layer (``interpol_tpu_torch.parallel``) on a mesh
@@ -300,8 +302,8 @@ def phase_build() -> None:
 
 def check_modes(errs, tag, inp, grid, orders, bounds, ex, md, sp=None):
     """Every dense mode (``sp``: adaptive) against its plain version on
-    the card; fused = single; hess symmetric; in adaptive mode the splats
-    equal across two runs.  Returns (value, {mode: err})."""
+    the card; fused = single; hess symmetric; the splats equal across two
+    runs and without a patch.  Returns (value, {mode: err})."""
     opts = (orders, bounds, ex, md, sp)
     sfx = "" if sp is None else "_ad"
     val, grad = cuda_warp.warp_cuda(inp, grid, *opts, value=True, grad=True)
@@ -316,12 +318,16 @@ def check_modes(errs, tag, inp, grid, orders, bounds, ex, md, sp=None):
         raise AssertionError(f"{tag}: fused and single modes differ")
     if not torch.equal(hess, hess.transpose(-1, -2)):
         raise AssertionError(f"{tag}: hess is not symmetric")
-    if sp is not None and not (
-            torch.equal(cuda_warp.push_cuda(inp, grid, *opts), push)
-            and torch.equal(cuda_warp.push_cuda(ct, grid, *opts,
-                                                deriv=True), pushgrad)):
-        raise AssertionError(f"{tag}: an adaptive splat differs between "
-                             f"runs")
+    # the same bits on a second run and with no patch (every tap straight
+    # to the accumulator)
+    for kw in ({}, dict(tile=(0, 0, 0))):
+        if not (torch.equal(cuda_warp.push_cuda(inp, grid, *opts, **kw),
+                            push)
+                and torch.equal(cuda_warp.push_cuda(ct, grid, *opts,
+                                                    deriv=True, **kw),
+                                pushgrad)):
+            raise AssertionError(f"{tag}: a splat differs between runs or "
+                                 f"launch geometries ({kw})")
     return val, {
         "value": hold(errs, "value" + sfx, tag, val,
                       _pull_impl_torch(inp, grid, *opts)),
@@ -649,6 +655,8 @@ def phase_times(card, errs, main, train) -> dict:
             b_ms, b_by = bound(*work[mode])
             times[mode] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                bound_by=b_by)
+            if mode in ("push", "pushgrad"):
+                times[mode]["peak_mib"] = k_mib
             log(f"time {mode} {MAIN_VOL} C=1 cubic dct2 max_disp 4: kernel "
                 f"{k_ms:.3f} ms (median of 20, peak +{k_mib:.0f} MiB), "
                 f"plain {p_ms:.3f} ms (one run, peak +{p_mib:.0f} "
@@ -663,7 +671,7 @@ def phase_times(card, errs, main, train) -> dict:
                        for _ in range(2)):
                 raise AssertionError(f"{mode} differs between runs")
             log(f"{mode} run-to-run at {MAIN_VOL}: three runs torch.equal "
-                f"(race-free patch splat)")
+                f"(fixed-point splat)")
             del first
 
     model = main["model"]
@@ -723,9 +731,9 @@ def gather_kernel(inp, grid, opts, mode):
             if t is not None]
 
 
-def splat_kernel(vals, grid, oshape, opts, mode):
+def splat_kernel(vals, grid, oshape, opts, mode, **kw):
     return cuda_scattered.splat_cuda(vals, grid, oshape, *opts,
-                                     spec=mode[3:])
+                                     spec=mode[3:], **kw)
 
 
 def sc_cloud(ish, P, seed, B=1, C=2):
@@ -740,7 +748,8 @@ def sc_cloud(ish, P, seed, B=1, C=2):
 
 def sc_check(errs, tag, inp, grid, orders, bounds, ex, oshape=None):
     """Every gather mode and splat spec against the plain cores; fused
-    modes equal to the single ones; every splat equal across two runs."""
+    modes equal to the single ones; every splat equal across two runs and
+    in each design (direct, box patches)."""
     opts = (orders, bounds, ex)
     B, C = inp.shape[:2]
     P, D = grid.shape[1:]
@@ -758,9 +767,11 @@ def sc_check(errs, tag, inp, grid, orders, bounds, ex, oshape=None):
     for k, (mode, (core, nd)) in enumerate(SPLAT.items()):
         vals = cotangent((B, C, P) + (D,) * nd, 40 + k)
         out = splat_kernel(vals, grid, oshape, opts, mode)
-        if not torch.equal(out, splat_kernel(vals, grid, oshape, opts,
-                                             mode)):
-            raise AssertionError(f"{tag}: {mode} differs between runs")
+        if not all(torch.equal(out, splat_kernel(vals, grid, oshape, opts,
+                                                 mode, box=b))
+                   for b in (None, False, True)):
+            raise AssertionError(f"{tag}: {mode} differs between runs or "
+                                 f"designs")
         hold(errs, mode, tag, out, core(vals, grid, oshape, *opts))
 
 
@@ -780,8 +791,8 @@ def phase_sc_kernels(errs) -> None:
             n += 1
     log(f"scattered kernels vs plain: orders 0-7 x bounds 0-6 x "
         f"extrapolate 0/1/2 ({n} cases, C=2, (12,13,20), 2000 points over "
-        f"[-2.5, n+1.5]): max err so far {fmt()}; fused = single and two "
-        f"runs of every splat torch.equal")
+        f"[-2.5, n+1.5]): max err so far {fmt()}; fused = single, two "
+        f"runs and every design of every splat torch.equal")
     for tag, (ish, P, seed, B, C), orders, bounds, ex, osh in [
             ("odd shape B=2 C=3 (19,24,37), orders (3,2,1), bounds "
              "(0,4,5)", ((19, 24, 37), 5000, 1, 2, 3), (3, 2, 1),
@@ -1215,6 +1226,8 @@ def phase_sc_times(card, errs, sc) -> dict:
             b_ms, b_by = bound(*work[mode])
             times[mode] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                bound_by=b_by)
+            if mode in SPLAT:
+                times[mode]["peak_mib"] = k_mib
             log(f"time {mode} {P} points in {N}^3 C=1 cubic dct2 "
                 f"extrapolate: kernel {k_ms:.3f} ms (median of 20, peak "
                 f"+{k_mib:.0f} MiB), plain {p_ms:.3f} ms (one run, "
@@ -1585,6 +1598,8 @@ def phase_adaptive_times(card, errs, ad, train) -> dict:
             b_ms, b_by = bound(*work[mode])
             times[mode + "_ad"] = dict(ms=ms_ad, plain_ms=p_ms,
                                        bound_ms=b_ms, bound_by=b_by)
+            if mode in ("push", "pushgrad"):
+                times[mode + "_ad"]["peak_mib"] = mib_ad
             log(f"time {mode}_ad {MAIN_VOL} C=1 cubic dct2 max_disp 4 "
                 f"tile_spread {tuple(round(x, 4) for x in sp)} on P8's "
                 f"flow: kernel {ms_ad:.3f} ms (median of 20, peak "
@@ -2158,10 +2173,10 @@ def phase_multidevice(card, errs, drive, main, sc) -> dict:
     return times
 
 
-SPLAT_PIECES = (("patch kernel", ("splat_patch_kernel",)),
-                ("overlap fold", ("overlap_fold",)),
-                ("outlier taps", ("outlier_taps",)),
-                ("segsum", ("segsum",)),
+SPLAT_PIECES = (("splat kernel", ("splat_direct", "splat_box")),
+                ("scale", ("scale_kernel",)),
+                ("convert", ("convert_kernel",)),
+                ("zero", ("fill", "memset")),
                 ("searchsorted", ("searchsorted",)),
                 ("sort", ("radixsort", "sort")),
                 ("index_select", ("index", "gather")))
@@ -2172,14 +2187,14 @@ def splat_piece(name: str) -> str:
     for piece, keys in SPLAT_PIECES:
         if any(k in low for k in keys):
             return piece
-    return "elementwise (keys, mask, lift, rows, zero)"
+    return "elementwise (keys, mask, lift, rows)"
 
 
 def phase_splat_profile(card, sc) -> None:
     """torch.profiler breakdown of one scattered splat (sc_push) at P5's
     shapes, order 1 and cubic, and of P7's dense splat: device time per
-    piece, the host's wait in the outliers' sync (cudaStreamSynchronize
-    of the ``.tolist()``), wall time and the device's idle share."""
+    piece, the host's waits (cudaStreamSynchronize: none since the
+    fixed-point splat), wall time and the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
     N, P = SC_N, SC_P
     pts, vals = sc["pts"].reshape(1, P, 3), sc["vals"].reshape(1, 1, P)
@@ -2221,7 +2236,7 @@ def phase_splat_profile(card, sc) -> None:
         log(f"splat profile {name}: wall {wall:.3f} ms per call (profiler "
             f"on), device busy {busy:.3f} ms, idle "
             f"{100 * (1 - busy / wall):.1f} %, host waits {wait:.3f} ms in "
-            f"cudaStreamSynchronize (the outliers' .tolist()); device ms: "
+            f"cudaStreamSynchronize; device ms: "
             + "; ".join(f"{k} {v:.4f}" for k, v in
                         sorted(pieces.items(), key=lambda kv: -kv[1]))
             + f" [{card}]")

@@ -1,66 +1,100 @@
 // Dense-warp B-spline splat (push) and its first-derivative form
 // (pushgrad) for Hopper (sm_90a).
 //
-// Replaces interpol_tpu/ops/pallas_warp.py::_push_kernel in its plain and
-// deriv modes (push_window / pushgrad_window forwards): the exact adjoints
-// of the pull and gradient modes of warp.cu.  The Pallas kernel splats
-// each tile into a private halo-extended box and overlap-adds the boxes,
-// then folds the pad margins back through the boundary: race-free by
-// construction.  This kernel keeps that design, in shared memory.
-//
-// Design: the race-free patch splat of patch_splat.cuh (read its notes
-// first), with the grid sites as items:
-//   - one warp per (batch, 8x8x8 site tile) and channel; its patch is the
-//     tile plus the window's shifts [smin, smax] on each axis (19^3 floats,
-//     27 KB, at cubic order and max_disp=4); each lane takes one site, 32
-//     sites at a time, and the warp walks their taps in step;
+// Replaces interpol_tpu/ops/pallas_warp.py::_push_kernel in its plain,
+// deriv and adaptive modes (push_window / pushgrad_window forwards): the
+// exact adjoints of the pull and gradient modes of warp.cu.  The Pallas
+// kernel splats each tile into a private halo-extended box and
+// overlap-adds the boxes, then folds the pad margins back through the
+// boundary: race-free by construction, so the JAX push is bit-reproducible.
+// Here every tap is a 64-bit fixed-point integer (fixed_splat.cuh, read its
+// notes first), whose sums do not depend on their order:
+//   - one block of 256 threads per (batch, site tile) and channel, one site
+//     per thread at a time; the tile's patch (the tile plus the window's
+//     shifts on each side, int64 cells in shared memory) takes each tap
+//     with a shared-memory atomicAdd, then every non-zero cell is added
+//     once to the int64 accumulator at its folded voxel (the overlap-add
+//     and the pad-margin fold, window._fold_pad_margins, in one pass);
 //   - a site's mask (inbounds_mask), window test (a site whose node origin
 //     leaves the window on some axis adds nothing, as in
-//     window._coef_fields) and unfolded tap factors are computed as the
-//     gather kernel of warp.cu computes them (spline_taps.cuh);
+//     window._coef_fields) and unfolded tap factors as the gather of
+//     warp.cu computes them (spline_taps.cuh);
 //   - mode 2c, adaptive (pallas_warp.py:669-685): a site's test is
 //     d0 - base in [d0min, d0max] of the residual window, with the base of
-//     its (8, 8, 128) TPU push tile (an 8^3 site tile lies inside one), as
-//     in warp.cu; the patch then spans the union of the shifted windows,
-//     [-B + smin, T - 1 + B + smax] with B = ceil(max_disp) (x/y [-7, 14],
-//     z [-9, 17] at cubic order, max_disp=4 and tile_spread (1.5, 1.5, 4)),
-//     so that the per-axis fold tables stay as they are.  A patch that
-//     shrinks to the residual window and moves with the base needs a fold
-//     that is not separable: later work;
+//     its (8, 8, 128) TPU push tile; a site tile lies inside one TPU tile
+//     (the host's tiles divide it), so its sites share the base, and the
+//     patch spans the residual window only and moves with the base;
 //   - deriv mode takes three cotangent components per site and splats
 //     v_x (w'_x w_y w_z) + v_y (w_x w'_y w_z) + v_z (w_x w_y w'_z), as
 //     pallas_warp.py:715-727 does;
-//   - the patches go to a scratch buffer (C, B, tiles, 19^3): 899 MB per
-//     channel at 256^3, cubic, max_disp=4, 13x the output; then
-//     overlap_fold_kernel sums them per output voxel and folds the pad
-//     margins through the bound (window._fold_pad_margins).
-// Two runs on the same inputs give the same bits.
+//   - the host picks the site tile (ops/cuda_warp.py::push_tile) whose
+//     patch fits 56 KB, or up to 227 KB for a wide window (one block an
+//     SM); when none does, each tap goes straight to the accumulator,
+//     folded, with the same bits.
+// Extra memory: the accumulator, twice the output.
 //
-// What bounds it on this card: one __syncwarp and one shared-memory
-// read-modify-write per tap step, (order+1)^3 steps for 32 sites; the few
-// warps a multiprocessor holds (a 27 KB patch each); and the scratch
-// traffic (the patches written once and read once).
+// What bounds it on this card: the shared-memory atomics, (order+1)^3 per
+// site (the least traffic is the values, grid and output once: 335.5 MB
+// for push at 256^3, 0.100 ms).
 
 // C interface (loaded with ctypes by ops/cuda_warp.py):
-//   int interpol_push(const float* vals, const float* grid, float* scratch,
-//                     float* out, const WarpParams* p, const PatchGeom* g,
+//   int interpol_push(const float* vals, const float* vals_orig,
+//                     long long n_orig, const float* grid, void* ws,
+//                     float* out, const WarpParams* p, const SplatGeom* g,
 //                     int deriv, void* stream);
-// vals (B, C, X, Y, Z) or, with deriv, (B, C, X, Y, Z, 3); grid
-// (B, X, Y, Z, 3); scratch (C, B, tiles, E0, E1, E2); out (B, C, X, Y, Z);
-// all float32, contiguous.  Returns the first failing cudaError_t.
+// vals (B, C, X, Y, Z) or, with deriv, (B, C, X, Y, Z, 3) (lifted to 3-D);
+// vals_orig the caller's values, n_orig elements per slice (the scale);
+// grid (B, X, Y, Z, 3); ws the zeroed workspace (fixed_splat.cuh); out
+// (B, C, X, Y, Z); all float32, contiguous.  Returns the first failing
+// cudaError_t.
 
-#include "patch_splat.cuh"
+#include "fixed_splat.cuh"
 
 namespace {
 
+// Stage the site at pos of batch b: mask, window test (shifted by ``sh``,
+// the base of the site's tile in adaptive mode), factors; false if it adds
+// nothing.
 template <int NT, int SPEC>
-__global__ void __launch_bounds__(kWarp)
-    push_patch_kernel(const float* __restrict__ vals,
-                      const float* __restrict__ grid,
-                      float* __restrict__ scratch, const WarpParams p,
-                      const PatchGeom g) {
-  extern __shared__ float patch[];
-  const int lane = threadIdx.x;
+__device__ __forceinline__ bool stage_site(ItemTaps<NT, SPEC>& it,
+                                           const float* __restrict__ grid,
+                                           const WarpParams& p, long long b,
+                                           const int* pos, const int* sh,
+                                           long long r, long long nvox) {
+  const float* gp = grid + 3 * (b * nvox + r);
+  const float gg[3] = {gp[0], gp[1], gp[2]};
+  if (p.masked && !inside(gg[0], gg[1], gg[2], p.thr_lo, p.thr_hi))
+    return false;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float n0f = stage_axis(it, d, gg[d], p.order[d]);
+    const float d0 = n0f - (float)pos[d];
+    if (!(d0 >= (float)(p.d0min[d] + sh[d]) &&
+          d0 <= (float)(p.d0max[d] + sh[d])))
+      return false;
+  }
+  return true;
+}
+
+template <int SPEC>
+__device__ __forceinline__ void load_vals(float* v, const float* vals,
+                                          long long o) {
+  if constexpr (SPEC == 0) {
+    v[0] = vals[o];
+  } else {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) v[k] = vals[3 * o + k];
+  }
+}
+
+// PATCH: the tile's sites into a shared patch, then the flush; otherwise
+// every tap straight to the accumulator.
+template <int NT, int SPEC, bool PATCH>
+__global__ void __launch_bounds__(kThreads)
+    push_kernel(const float* __restrict__ vals,
+                const float* __restrict__ grid, Workspace w,
+                const WarpParams p, const SplatGeom g) {
+  extern __shared__ unsigned long long smem[];
   const int X = p.shape[0], Y = p.shape[1], Z = p.shape[2];
   const long long nvox = (long long)X * Y * Z;
   const long long ntile = (long long)g.NB[0] * g.NB[1] * g.NB[2];
@@ -70,111 +104,104 @@ __global__ void __launch_bounds__(kWarp)
   const int tix[3] = {(int)(tile / ((long long)g.NB[1] * g.NB[2])),
                       (int)((tile / g.NB[2]) % g.NB[1]),
                       (int)(tile % g.NB[2])};
-  int s0[3], sn[3];
+  int s0[3], sn[3], origin[3], sh[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) s0[d] = tix[d] * g.T[d];
+  // the site tile lies inside one TPU tile: one base for all its sites
+  tile_shift(p, b, s0[0], s0[1], s0[2], sh);
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    s0[d] = tix[d] * g.T[d];
     sn[d] = min(g.T[d], p.shape[d] - s0[d]);
+    origin[d] = s0[d] + g.lo[d] + sh[d];
   }
+  const long long slice = b * p.C + c;
+  unsigned long long* acc = w.acc + slice * nvox;
+  const float scale = pow2f(w.kexp[slice]);
+  PatchSmem ps;
+  if constexpr (PATCH) ps = patch_begin(smem, g.E, origin, p.shape, p.bound);
   const int nsites = sn[0] * sn[1] * sn[2];
-  const long long psize = (long long)g.E[0] * g.E[1] * g.E[2];
-  float* dst = scratch + (c * g.B * ntile + bt) * psize;
-  const int order[3] = {p.order[0], p.order[1], p.order[2]};
-  // this block's x-slab of the patch
-  const int x0 = blockIdx.z * g.xslab;
-  const int ex = min(g.xslab, g.E[0] - x0);
-  const int count = ex * g.E[1] * g.E[2];
-  zero_slab(patch, count);
-  for (int base = 0; base < nsites; base += kWarp) {
-    const int i = base + lane;
-    Item<NT, SPEC> it;
-    it.live = false;
-    it.n0[0] = it.n0[1] = it.n0[2] = 0;
-    if (i < nsites) {
-      const int pos[3] = {s0[0] + i / (sn[1] * sn[2]),
-                          s0[1] + (i / sn[2]) % sn[1], s0[2] + i % sn[2]};
-      const long long r = ((long long)pos[0] * Y + pos[1]) * Z + pos[2];
-      const float* gp = grid + 3 * (b * nvox + r);
-      const float gg[3] = {gp[0], gp[1], gp[2]};
-      bool live = !p.masked || inside(gg[0], gg[1], gg[2], p.thr_lo,
-                                      p.thr_hi);
-      int sh[3];  // the window test's shift (adaptive mode)
-      tile_shift(p, b, pos[0], pos[1], pos[2], sh);
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        if (!live) break;
-        const float n0f = node_origin(gg[d], order[d]);
-        const float d0 = n0f - (float)pos[d];
-        live = d0 >= (float)(p.d0min[d] + sh[d]) &&
-               d0 <= (float)(p.d0max[d] + sh[d]);
-        if (live) {
-          it.n0[d] = (int)n0f - (s0[d] + g.lo[d]);
-          stage_axis<NT, SPEC>(it, d, gg[d] - n0f, order[d]);
-        }
-      }
-      if (live) {
-        const long long o = (b * p.C + c) * nvox + r;
-        if constexpr (SPEC == 0) {
-          it.v[0] = vals[o];
-        } else {
-#pragma unroll
-          for (int k = 0; k < 3; ++k) it.v[k] = vals[3 * o + k];
-        }
-      }
-      it.live = live;
+  for (int i = threadIdx.x; i < nsites; i += kThreads) {
+    const int pos[3] = {s0[0] + i / (sn[1] * sn[2]),
+                        s0[1] + (i / sn[2]) % sn[1], s0[2] + i % sn[2]};
+    const long long r = ((long long)pos[0] * Y + pos[1]) * Z + pos[2];
+    ItemTaps<NT, SPEC> it;
+    if (!stage_site(it, grid, p, b, pos, sh, r, nvox)) continue;
+    float v[Spec<SPEC>::NV];
+    load_vals<SPEC>(v, vals, slice * nvox + r);
+    if constexpr (PATCH)
+      patch_add(ps, it, v, p.order, origin, g.E[1], g.E[2], scale);
+    else {
+      Folded<NT, SPEC> f;
+      fold_item(it, f, p.order, p.shape, p.bound);
+      direct_add(acc, it, f, v, p.order, scale);
     }
-    splat_round<NT, SPEC>(patch, it, order, x0, ex, g.E[1], g.E[2]);
   }
-  store_slab(dst + (long long)x0 * g.E[1] * g.E[2], patch, count);
+  if constexpr (PATCH) patch_flush(ps, g.E, acc, Y, Z);
 }
 
 template <int NT, int SPEC>
-cudaError_t launch(const float* vals, const float* grid, float* scratch,
-                   float* out, const WarpParams& p, const PatchGeom& g,
+cudaError_t launch(const float* vals, const float* vals_orig,
+                   long long n_orig, const float* grid, const Workspace& w,
+                   float* out, const WarpParams& p, const SplatGeom& g,
                    cudaStream_t s) {
+  const long long S = p.B * p.C;
+  const long long nvox = (long long)p.shape[0] * p.shape[1] * p.shape[2];
   const long long tiles = p.B * (long long)g.NB[0] * g.NB[1] * g.NB[2];
-  if (tiles < 1 || tiles > 0x7fffffffLL || p.C > 65535 || g.E[0] > 65535 * g.xslab)
+  if (tiles < 1 || tiles > 0x7fffffffLL || p.C > 65535)
     return cudaErrorInvalidConfiguration;
-  const size_t smem = (size_t)g.xslab * g.E[1] * g.E[2] * sizeof(float);
-  const int nslab = (g.E[0] + g.xslab - 1) / g.xslab;
-  cudaError_t e = allow_smem(push_patch_kernel<NT, SPEC>, smem);
+  cudaError_t e = launch_scale(vals_orig, S, n_orig, Spec<SPEC>::kMass, w, s);
   if (e != cudaSuccess) return e;
-  push_patch_kernel<NT, SPEC>
-      <<<dim3((unsigned)tiles, (unsigned)p.C, (unsigned)nslab), kWarp,
-         smem, s>>>(
-          vals, grid, scratch, p, g);
+  const dim3 grid_dim((unsigned)tiles, (unsigned)p.C);
+  if (g.E[0] > 0) {
+    const size_t smem = patch_bytes(g.E);
+    e = allow_smem(push_kernel<NT, SPEC, true>, smem);
+    if (e != cudaSuccess) return e;
+    push_kernel<NT, SPEC, true><<<grid_dim, kThreads, smem, s>>>(vals, grid,
+                                                                 w, p, g);
+  } else {
+    push_kernel<NT, SPEC, false><<<grid_dim, kThreads, 0, s>>>(vals, grid,
+                                                               w, p, g);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_overlap(scratch, out, g, s);
+  return launch_convert(w, out, S, nvox, s);
 }
 
 template <int NT>
-cudaError_t launch_mode(const float* vals, const float* grid, float* scratch,
-                        float* out, const WarpParams& p, const PatchGeom& g,
-                        int deriv, cudaStream_t s) {
-  if (deriv) return launch<NT, 1>(vals, grid, scratch, out, p, g, s);
-  return launch<NT, 0>(vals, grid, scratch, out, p, g, s);
+cudaError_t launch_mode(const float* vals, const float* vals_orig,
+                        long long n_orig, const float* grid,
+                        const Workspace& w, float* out, const WarpParams& p,
+                        const SplatGeom& g, int deriv, cudaStream_t s) {
+  if (deriv)
+    return launch<NT, 1>(vals, vals_orig, n_orig, grid, w, out, p, g, s);
+  return launch<NT, 0>(vals, vals_orig, n_orig, grid, w, out, p, g, s);
 }
 
 }  // namespace
 
-extern "C" int interpol_push(const float* vals, const float* grid,
-                             float* scratch, float* out, const WarpParams* p,
-                             const PatchGeom* g, int deriv, void* stream) {
-  if (vals == nullptr || grid == nullptr || scratch == nullptr ||
-      out == nullptr || g->xslab < 1)
+extern "C" int interpol_push(const float* vals, const float* vals_orig,
+                             long long n_orig, const float* grid, void* ws,
+                             float* out, const WarpParams* p,
+                             const SplatGeom* g, int deriv, void* stream) {
+  if (vals == nullptr || vals_orig == nullptr || grid == nullptr ||
+      ws == nullptr || out == nullptr || n_orig < 1)
     return (int)cudaErrorInvalidValue;
   int nt = 0;
   for (int d = 0; d < 3; ++d) {
     if (p->order[d] < 0 || p->order[d] > 7 || p->bound[d] < 0 ||
-        p->bound[d] > 6 || p->shape[d] < 1)
+        p->bound[d] > 6 || p->shape[d] < 1 || g->T[d] < 1)
       return (int)cudaErrorInvalidValue;
     nt = max(nt, p->order[d] + 1);
   }
+  const Workspace w = workspace(
+      ws, p->B * p->C, (long long)p->shape[0] * p->shape[1] * p->shape[2]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-#define INTERPOL_NT_CASE(N) \
-  case N: err = launch_mode<N>(vals, grid, scratch, out, *p, *g, deriv, s); break;
+#define INTERPOL_NT_CASE(N)                                                \
+  case N:                                                                  \
+    err = launch_mode<N>(vals, vals_orig, n_orig, grid, w, out, *p, *g,    \
+                         deriv, s);                                        \
+    break;
   switch (nt) {
     INTERPOL_NT_CASE(1)
     INTERPOL_NT_CASE(2)
@@ -183,7 +210,10 @@ extern "C" int interpol_push(const float* vals, const float* grid,
     INTERPOL_NT_CASE(5)
     INTERPOL_NT_CASE(6)
     INTERPOL_NT_CASE(7)
-    default: err = launch_mode<8>(vals, grid, scratch, out, *p, *g, deriv, s); break;
+    default:
+      err = launch_mode<8>(vals, vals_orig, n_orig, grid, w, out, *p, *g,
+                           deriv, s);
+      break;
   }
 #undef INTERPOL_NT_CASE
   return (int)err;

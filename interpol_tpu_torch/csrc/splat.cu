@@ -8,193 +8,212 @@
 // are then overlap-added and folded through the bounds in XLA.  That is
 // race-free by construction, so the JAX push is bit-reproducible.
 //
-// Why not atomics: an atomicAdd splat sums each voxel's taps in an order
-// that changes from run to run, so grid_push and every image gradient of
-// grid_pull would differ between runs in the last bits.  This kernel keeps
-// the TPU's box design, done in shared memory (patch_splat.cuh, whose
-// notes describe it):
-//   - the host sorts the points by box key (ops/scattered.py: one
-//     torch.sort, searchsorted segment starts); a box is a T^3 core of
-//     voxels, and a point belongs to the box of floor(g);
-//   - one warp per (box, channel) reads its segment in sorted order, 32
-//     points at a time, one per lane, and accumulates their taps into a
-//     patch in shared memory: the core plus the spline support on each side
-//     (cubic, T=16: 21^3 floats, 37 KB), all lanes at the same tap;
-//   - overlap_fold_kernel sums the patches per output voxel in a fixed
-//     order and folds them through the bounds;
-//   - outliers, the points outside [0, n-1] on some axis that the mask
-//     keeps, are the last segment: outlier_taps_kernel folds each of their
-//     taps directly into (destination, contribution) pairs, the host sorts
-//     the pairs by destination (stable, so ties keep point order), and
-//     segsum_kernel adds each destination's run, in order, to the output.
-//     No point is dropped or handed to the plain version.
-// A template SPEC selects push (1 value row), pushgrad (3 rows, first
-// derivative taps) and pushhess (6 rows: xx, yy, zz and the summed
+// Here every tap is a 64-bit fixed-point integer (fixed_splat.cuh, read
+// its notes first), whose sums do not depend on their order, so no sort is
+// needed for the bits.  Two designs, the same bits:
+//   - direct (splat_direct_kernel): one thread per point, in input order;
+//     its taps folded through the bounds (outliers included) and added
+//     straight to the int64 accumulator, each with an atomicAdd whose result
+//     is unused (a reduction, RED, in L2).  No sort, no host work;
+//   - box (splat_box_kernel): the points sorted by box
+//     (ops/scattered.py::box_schedule, one torch.sort); one block of 256
+//     threads per (box, channel) adds its points' taps to a patch in shared
+//     memory (the box plus the spline's reach, splat_margins), then every
+//     non-zero cell once to the accumulator, folded; the outliers (points
+//     outside [0, n-1] on some axis that the mask keeps, the sort's last
+//     segment) go through the direct kernel, their range read on the card.
+// ops/cuda_scattered.py picks the design by points per output voxel
+// (PERF.md).  A template SPEC selects push (1 value row), pushgrad (3 rows,
+// first-derivative taps) and pushhess (6 rows: xx, yy, zz and the summed
 // symmetric pairs xy, xz, yz), as the JAX spec does (scattered.py:1359).
 //
-// What bounds it on this card: one __syncwarp and one shared-memory
-// read-modify-write per tap step, (order+1)^3 steps for 32 points; the
-// host's sort of the keys; and the patch scratch written once and read
-// once (2.3x the output at 16^3 cores and cubic order).  The least traffic
-// is the points, values and output once: 83 MB for 1M points into 256^3.
+// What bounds it on this card: the atomics, (order+1)^3 per point per
+// channel (the least traffic is the points, values and output once: 83 MB
+// for 1M points into 256^3, 0.0248 ms).
 //
 // C interface (loaded with ctypes by ops/cuda_scattered.py):
-//   int interpol_splat(const float* coords, const float* vals,
-//                      const long long* seg, float* scratch, float* out,
-//                      const PointParams* p, const PatchGeom* g, int spec,
-//                      void* stream);
-//   int interpol_splat_outliers(const float* coords, const float* vals,
-//                               const int* keys, long long begin,
-//                               long long count, long long key_base,
-//                               long long* dest, float* contrib,
-//                               const PointParams* p, int spec,
-//                               void* stream);
-//   int interpol_splat_segsum(const long long* dest, const float* contrib,
-//                             long long count, float* out,
-//                             const PointParams* p, void* stream);
-// coords (B*P, 3) and vals (C, NV, B*P) in sorted order, keys the sorted
-// box keys, seg (B*tiles + 1) segment starts; scratch (C, B, tiles, E0,
-// E1, E2); out (B, C, X, Y, Z); dest (count * NT^3) and contrib (C, count
-// * NT^3) for the outliers (NT = largest order + 1); all contiguous.
-// Each returns the first failing cudaError_t.
+//   int interpol_splat(const float* coords, const float* rows,
+//                      const float* vals_orig, long long n_orig,
+//                      const int* keys, const long long* seg, void* ws,
+//                      float* out, const PointParams* p,
+//                      const SplatGeom* g, int spec, void* stream);
+// coords (B*P, 3) and rows (C, NV, B*P): in input order (direct, keys and
+// seg null) or sorted by box (keys the sorted int32 box keys, seg the
+// (B*tiles + B + 2) segment starts, g the boxes); vals_orig the caller's
+// values, n_orig elements per slice (the scale); ws the zeroed workspace;
+// out (B, C, X, Y, Z); all contiguous.  Returns the first failing
+// cudaError_t.
 
-#include "patch_splat.cuh"
+#include "fixed_splat.cuh"
 
 namespace {
 
-template <int NT, int SPEC>
-__global__ void __launch_bounds__(kWarp)
-    splat_patch_kernel(const float* __restrict__ coords,
-                       const float* __restrict__ vals,
-                       const long long* __restrict__ seg,
-                       float* __restrict__ scratch, const PointParams p,
-                       const PatchGeom g) {
-  extern __shared__ float patch[];
+template <int SPEC>
+__device__ __forceinline__ void load_rows(float* v, const float* rows,
+                                          long long c, long long ntot,
+                                          long long k) {
   constexpr int NV = Spec<SPEC>::NV;
-  const int lane = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < NV; ++r) v[r] = __ldg(rows + (c * NV + r) * ntot + k);
+}
+
+// One point's taps as the direct kernel's warp shares them (shared memory):
+// per axis the folded indices and the signed factors, the live taps
+// (fold_taps), the values of the current channel and the batch (-1: the
+// point adds nothing).
+template <int NT, int SPEC>
+struct Staged {
+  static constexpr int ND = SPEC >= 1 ? NT : 1, NH = SPEC == 2 ? NT : 1;
+  float w[3][NT], d[3][ND], h[3][NH];
+  int idx[3][NT];
+  float v[Spec<SPEC>::NV];
+  unsigned live[3];
+  int b;
+};
+
+// Every kept point of [k0, k1) straight to the accumulator: all points in
+// input order (keys null: the batch is k / P, k1 = B*P), or the outliers
+// of a box-sorted cloud (``tiles`` = B x boxes: the range seg[tiles],
+// seg[tiles + B] read here, the batch from the key).  Each thread stages one
+// point (mask, factors, fold) into its warp's shared buffer; then the warp
+// adds its points' taps, the lanes split as (32 / zt) points x zt z taps
+// (zt = order_z + 1), so that one atomic instruction covers whole z runs
+// of several points: a run of zt contiguous voxels per point, and for
+// points in order (a reslice) overlapping runs.
+template <int NT, int SPEC>
+__global__ void __launch_bounds__(kThreads)
+    splat_direct_kernel(const float* __restrict__ coords,
+                        const float* __restrict__ rows, Workspace w,
+                        const PointParams p, const int* __restrict__ keys,
+                        const long long* __restrict__ seg,
+                        long long tiles) {
+  extern __shared__ unsigned long long smem[];
+  using St = Staged<NT, SPEC>;
+  const int lane = threadIdx.x & 31;
+  St* st = reinterpret_cast<St*>(smem) + (threadIdx.x - lane);
+  St& me = st[lane];
   const long long ntot = p.B * p.P;
+  const long long nvox = (long long)p.shape[0] * p.shape[1] * p.shape[2];
+  long long k0 = 0, k1 = ntot;
+  if (keys != nullptr) {
+    k0 = seg[tiles];
+    k1 = seg[tiles + p.B];
+  }
+  const int zt = p.order[2] + 1;
+  const int G = 32 / zt;  // points per group of lanes
+  for (long long base = k0 + (long long)blockIdx.x * kThreads +
+                        (threadIdx.x - lane);
+       base < k1; base += (long long)gridDim.x * kThreads) {
+    const long long k = base + lane;
+    me.b = -1;
+    if (k < k1) {
+      const long long b = keys != nullptr ? keys[k] - tiles : k / p.P;
+      const float g[3] = {coords[3 * k], coords[3 * k + 1],
+                          coords[3 * k + 2]};
+      if (!p.masked || inside(g[0], g[1], g[2], p.thr_lo, p.thr_hi)) {
+        if (!(isfinite(g[0]) && isfinite(g[1]) && isfinite(g[2]))) {
+          for (long long c = 0; c < p.C; ++c)
+            atomicOr(w.bad + b * p.C + c, 1u);
+        } else {
+          ItemTaps<NT, SPEC> it;
+          long long idx[NT];
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            stage_axis(it, d, g[d], p.order[d]);
+            fold_taps<NT, (SPEC >= 1), (SPEC == 2)>(
+                it.n0[d], p.shape[d], p.order[d], p.bound[d], 1LL, idx,
+                it.w[d], it.d[d], it.h[d], me.live[d]);
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              me.idx[d][j] = (int)idx[j];
+              me.w[d][j] = it.w[d][j];
+              if constexpr (SPEC >= 1) me.d[d][j] = it.d[d][j];
+              if constexpr (SPEC == 2) me.h[d][j] = it.h[d][j];
+            }
+          }
+          me.b = (int)b;
+        }
+      }
+    }
+    for (long long c = 0; c < p.C; ++c) {
+      if (me.b >= 0) {
+        constexpr int NV = Spec<SPEC>::NV;
+#pragma unroll
+        for (int r = 0; r < NV; ++r)
+          me.v[r] = __ldg(rows + (c * NV + r) * ntot + k);
+      }
+      __syncwarp();
+      for (int g0 = 0; g0 < 32; g0 += G) {
+        const int q = g0 + lane / zt, jz = lane - (lane / zt) * zt;
+        if (lane >= G * zt || q >= 32) continue;
+        const St& s = st[q];
+        if (s.b < 0 || !((s.live[2] >> jz) & 1u)) continue;
+        const long long slice = (long long)s.b * p.C + c;
+        float vs[Spec<SPEC>::NV];
+        scaled<SPEC>(vs, s.v, pow2f(w.kexp[slice]));
+        unsigned long long* acc = w.acc + slice * nvox + s.idx[2][jz];
+#pragma unroll
+        for (int jy = 0; jy < NT; ++jy) {
+          if (jy > p.order[1]) break;
+          if (!((s.live[1] >> jy) & 1u)) continue;
+          const Column col = column<SPEC>(s, vs, jy, jz);
+#pragma unroll
+          for (int jx = 0; jx < NT; ++jx) {
+            if (jx > p.order[0]) break;
+            if (!((s.live[0] >> jx) & 1u)) continue;
+            atomicAdd(acc + ((long long)s.idx[0][jx] * p.shape[1] +
+                             s.idx[1][jy]) * p.shape[2],
+                      column_tap<SPEC>(s, col, jx));
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// One block per (box b * tiles + t, channel): the box's points into its
+// patch, then the flush.
+template <int NT, int SPEC>
+__global__ void __launch_bounds__(kThreads)
+    splat_box_kernel(const float* __restrict__ coords,
+                     const float* __restrict__ rows,
+                     const long long* __restrict__ seg, Workspace w,
+                     const PointParams p, const SplatGeom g) {
+  extern __shared__ unsigned long long smem[];
+  const long long ntot = p.B * p.P;
+  const long long nvox = (long long)p.shape[0] * p.shape[1] * p.shape[2];
   const long long ntile = (long long)g.NB[0] * g.NB[1] * g.NB[2];
-  const long long bt = blockIdx.x;  // b * ntile + tile
-  const long long tile = bt % ntile;
+  const long long bt = blockIdx.x;
+  const long long b = bt / ntile, tile = bt - b * ntile;
   const long long c = blockIdx.y;
+  const long long k0 = seg[bt], k1 = seg[bt + 1];
+  if (k0 == k1) return;
   const int tix[3] = {(int)(tile / ((long long)g.NB[1] * g.NB[2])),
                       (int)((tile / g.NB[2]) % g.NB[1]),
                       (int)(tile % g.NB[2])};
   int origin[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) origin[d] = tix[d] * g.T[d] + g.lo[d];
-  const long long k0 = seg[bt], k1 = seg[bt + 1];
-  const long long psize = (long long)g.E[0] * g.E[1] * g.E[2];
-  float* dst = scratch + (c * g.B * ntile + bt) * psize;
-  const int order[3] = {p.order[0], p.order[1], p.order[2]};
-  // this block's x-slab of the patch
-  const int x0 = blockIdx.z * g.xslab;
-  const int ex = min(g.xslab, g.E[0] - x0);
-  const int count = ex * g.E[1] * g.E[2];
-  zero_slab(patch, count);
-  for (long long base = k0; base < k1; base += kWarp) {
-    const long long k = base + lane;
-    Item<NT, SPEC> it;
-    it.live = false;
-    it.n0[0] = it.n0[1] = it.n0[2] = 0;
-    if (k < k1) {
-      bool live = true;
+  const long long slice = b * p.C + c;
+  const float scale = pow2f(w.kexp[slice]);
+  const PatchSmem ps = patch_begin(smem, g.E, origin, p.shape, p.bound);
+  for (long long k = k0 + threadIdx.x; k < k1; k += kThreads) {
+    ItemTaps<NT, SPEC> it;
+    bool in = true;
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        if (!live) break;
-        const float gd = coords[3 * k + d];
-        const float n0f = node_origin(gd, order[d]);
-        const int l = node_index(n0f) - origin[d];
-        // every tap inside the patch (the host's margins guarantee it)
-        live = l >= 0 && l + order[d] < g.E[d];
-        if (live) {
-          it.n0[d] = l;
-          stage_axis<NT, SPEC>(it, d, gd - n0f, order[d]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < NV; ++r) it.v[r] = vals[(c * NV + r) * ntot + k];
-      it.live = live;
+    for (int d = 0; d < 3; ++d) {
+      stage_axis(it, d, coords[3 * k + d], p.order[d]);
+      // every tap inside the patch (the host's margins guarantee it)
+      const int l = it.n0[d] - origin[d];
+      in = in && l >= 0 && l + p.order[d] < g.E[d];
     }
-    splat_round<NT, SPEC>(patch, it, order, x0, ex, g.E[1], g.E[2]);
+    if (!in) continue;
+    float v[Spec<SPEC>::NV];
+    load_rows<SPEC>(v, rows, c, ntot, k);
+    patch_add(ps, it, v, p.order, origin, g.E[1], g.E[2], scale);
   }
-  store_slab(dst + (long long)x0 * g.E[1] * g.E[2], patch, count);
-}
-
-// One thread per outlier point: its taps folded through the bounds, as
-// (destination b * V + voxel, contribution per channel) pairs; taps past
-// the axis order or with fold sign 0 get destination -1.
-template <int NT, int SPEC>
-__global__ void __launch_bounds__(128)
-    outlier_taps_kernel(const float* __restrict__ coords,
-                        const float* __restrict__ vals,
-                        const int* __restrict__ keys, long long begin,
-                        long long count, long long key_base,
-                        long long* __restrict__ dest,
-                        float* __restrict__ contrib, const PointParams p) {
-  constexpr bool D1 = SPEC >= 1, D2 = SPEC == 2;
-  constexpr int NV = Spec<SPEC>::NV, NT3 = NT * NT * NT;
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= count) return;
-  const long long k = begin + j;
-  const long long b = keys[k] - key_base;
-  const int X = p.shape[0], Y = p.shape[1], Z = p.shape[2];
-  const long long nvox = (long long)X * Y * Z;
-  const long long ntot = p.B * p.P;
-  long long o[3][NT];
-  float w[3][NT], dw[3][NT], hw[3][NT];
-  unsigned live[3];
-  const long long stride[3] = {(long long)Y * Z, (long long)Z, 1LL};
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const float gd = coords[3 * k + d];
-    const float n0f = node_origin(gd, p.order[d]);
-    axis_weights<NT, D1, D2>(gd - n0f, p.order[d], w[d], dw[d], hw[d]);
-    fold_taps<NT, D1, D2>(node_index(n0f), p.shape[d], p.order[d],
-                          p.bound[d], stride[d], o[d], w[d], dw[d], hw[d],
-                          live[d]);
-  }
-  for (int jx = 0; jx < NT; ++jx) {
-    for (int jy = 0; jy < NT; ++jy) {
-      for (int jz = 0; jz < NT; ++jz) {
-        const long long idx = j * NT3 + (jx * NT + jy) * NT + jz;
-        const bool on = jx <= p.order[0] && jy <= p.order[1] &&
-                        jz <= p.order[2] && ((live[0] >> jx) & 1u) &&
-                        ((live[1] >> jy) & 1u) && ((live[2] >> jz) & 1u);
-        dest[idx] = on ? b * nvox + o[0][jx] + o[1][jy] + o[2][jz] : -1;
-        for (long long c = 0; c < p.C; ++c) {
-          float v[NV];
-#pragma unroll
-          for (int r = 0; r < NV; ++r) v[r] = vals[(c * NV + r) * ntot + k];
-          contrib[c * count * NT3 + idx] =
-              on ? spec_coef<SPEC>(v, w[0][jx], w[1][jy], w[2][jz],
-                                   dw[0][jx], dw[1][jy], dw[2][jz],
-                                   hw[0][jx], hw[1][jy], hw[2][jz])
-                 : 0.f;
-        }
-      }
-    }
-  }
-}
-
-// One thread per run of equal destinations in the sorted pairs: adds the
-// run, in order, to the output (each destination has one run: no race).
-__global__ void __launch_bounds__(256)
-    segsum_kernel(const long long* __restrict__ dest,
-                  const float* __restrict__ contrib, long long count,
-                  float* __restrict__ out, const PointParams p) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const long long d = dest[i];
-  if (d < 0 || (i > 0 && dest[i - 1] == d)) return;
-  const long long nvox = (long long)p.shape[0] * p.shape[1] * p.shape[2];
-  const long long b = d / nvox, r = d - b * nvox;
-  for (long long c = 0; c < p.C; ++c) {
-    const float* src = contrib + c * count;
-    float acc = 0.f;
-    for (long long k = i; k < count && dest[k] == d; ++k) acc += src[k];
-    out[(b * p.C + c) * nvox + r] += acc;
-  }
+  patch_flush(ps, g.E, w.acc + slice * nvox, p.shape[1], p.shape[2]);
 }
 
 int max_nt(const PointParams* p) {
@@ -209,111 +228,82 @@ int max_nt(const PointParams* p) {
 }
 
 template <int NT, int SPEC>
-cudaError_t launch_splat(const float* coords, const float* vals,
-                         const long long* seg, float* scratch, float* out,
-                         const PointParams& p, const PatchGeom& g,
+cudaError_t launch_splat(const float* coords, const float* rows,
+                         const float* vals_orig, long long n_orig,
+                         const int* keys, const long long* seg,
+                         const Workspace& w, float* out,
+                         const PointParams& p, const SplatGeom& g,
                          cudaStream_t s) {
-  const long long tiles = p.B * (long long)g.NB[0] * g.NB[1] * g.NB[2];
-  if (tiles < 1 || tiles > 0x7fffffffLL || p.C > 65535 || g.E[0] > 65535 * g.xslab)
-    return cudaErrorInvalidConfiguration;
-  const size_t smem = (size_t)g.xslab * g.E[1] * g.E[2] * sizeof(float);
-  const int nslab = (g.E[0] + g.xslab - 1) / g.xslab;
-  cudaError_t e = allow_smem(splat_patch_kernel<NT, SPEC>, smem);
+  const long long S = p.B * p.C;
+  const long long nvox = (long long)p.shape[0] * p.shape[1] * p.shape[2];
+  const long long ntot = p.B * p.P;
+  cudaError_t e = launch_scale(vals_orig, S, n_orig, Spec<SPEC>::kMass, w, s);
   if (e != cudaSuccess) return e;
-  splat_patch_kernel<NT, SPEC>
-      <<<dim3((unsigned)tiles, (unsigned)p.C, (unsigned)nslab), kWarp,
-         smem, s>>>(
-          coords, vals, seg, scratch, p, g);
+  const long long blocks = (ntot + kThreads - 1) / kThreads;
+  const long long tiles = p.B * (long long)g.NB[0] * g.NB[1] * g.NB[2];
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const size_t direct_smem = sizeof(Staged<NT, SPEC>) * kThreads;
+  e = allow_smem(splat_direct_kernel<NT, SPEC>, direct_smem);
+  if (e != cudaSuccess) return e;
+  if (seg == nullptr) {
+    splat_direct_kernel<NT, SPEC>
+        <<<(unsigned)blocks, kThreads, direct_smem, s>>>(coords, rows, w, p,
+                                                         nullptr, nullptr, 0);
+  } else {
+    if (tiles < 1 || tiles > 0x7fffffffLL || p.C > 65535)
+      return cudaErrorInvalidConfiguration;
+    const size_t smem = patch_bytes(g.E);
+    e = allow_smem(splat_box_kernel<NT, SPEC>, smem);
+    if (e != cudaSuccess) return e;
+    splat_box_kernel<NT, SPEC>
+        <<<dim3((unsigned)tiles, (unsigned)p.C), kThreads, smem, s>>>(
+            coords, rows, seg, w, p, g);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    // the outliers: a grid-stride pass over their range, read on the card
+    splat_direct_kernel<NT, SPEC><<<264, kThreads, direct_smem, s>>>(
+        coords, rows, w, p, keys, seg, tiles);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_overlap(scratch, out, g, s);
-}
-
-template <int NT, int SPEC>
-cudaError_t launch_outliers(const float* coords, const float* vals,
-                            const int* keys, long long begin,
-                            long long count, long long key_base,
-                            long long* dest, float* contrib,
-                            const PointParams& p, cudaStream_t s) {
-  const long long blocks = (count + 127) / 128;
-  if (blocks < 1 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  outlier_taps_kernel<NT, SPEC><<<(unsigned)blocks, 128, 0, s>>>(
-      coords, vals, keys, begin, count, key_base, dest, contrib, p);
-  return cudaGetLastError();
+  return launch_convert(w, out, S, nvox, s);
 }
 
 }  // namespace
 
-#define INTERPOL_DISPATCH(FN, ...)                                   \
-  switch (nt * 3 + spec) {                                           \
-    case 3: err = FN<1, 0>(__VA_ARGS__); break;                      \
-    case 4: err = FN<1, 1>(__VA_ARGS__); break;                      \
-    case 5: err = FN<1, 2>(__VA_ARGS__); break;                      \
-    case 6: err = FN<2, 0>(__VA_ARGS__); break;                      \
-    case 7: err = FN<2, 1>(__VA_ARGS__); break;                      \
-    case 8: err = FN<2, 2>(__VA_ARGS__); break;                      \
-    case 9: err = FN<3, 0>(__VA_ARGS__); break;                      \
-    case 10: err = FN<3, 1>(__VA_ARGS__); break;                     \
-    case 11: err = FN<3, 2>(__VA_ARGS__); break;                     \
-    case 12: err = FN<4, 0>(__VA_ARGS__); break;                     \
-    case 13: err = FN<4, 1>(__VA_ARGS__); break;                     \
-    case 14: err = FN<4, 2>(__VA_ARGS__); break;                     \
-    case 15: err = FN<5, 0>(__VA_ARGS__); break;                     \
-    case 16: err = FN<5, 1>(__VA_ARGS__); break;                     \
-    case 17: err = FN<5, 2>(__VA_ARGS__); break;                     \
-    case 18: err = FN<6, 0>(__VA_ARGS__); break;                     \
-    case 19: err = FN<6, 1>(__VA_ARGS__); break;                     \
-    case 20: err = FN<6, 2>(__VA_ARGS__); break;                     \
-    case 21: err = FN<7, 0>(__VA_ARGS__); break;                     \
-    case 22: err = FN<7, 1>(__VA_ARGS__); break;                     \
-    case 23: err = FN<7, 2>(__VA_ARGS__); break;                     \
-    case 24: err = FN<8, 0>(__VA_ARGS__); break;                     \
-    case 25: err = FN<8, 1>(__VA_ARGS__); break;                     \
-    default: err = FN<8, 2>(__VA_ARGS__); break;                     \
+extern "C" int interpol_splat(const float* coords, const float* rows,
+                              const float* vals_orig, long long n_orig,
+                              const int* keys, const long long* seg,
+                              void* ws, float* out, const PointParams* p,
+                              const SplatGeom* g, int spec, void* stream) {
+  const int nt = max_nt(p);
+  if (nt == 0 || spec < 0 || spec > 2 || coords == nullptr ||
+      rows == nullptr || vals_orig == nullptr || n_orig < 1 ||
+      ws == nullptr || out == nullptr || (seg == nullptr) != (keys == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Workspace w = workspace(
+      ws, p->B * p->C, (long long)p->shape[0] * p->shape[1] * p->shape[2]);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define INTERPOL_SPLAT_CASE(N, S)                                           \
+  case N * 3 + S:                                                           \
+    err = launch_splat<N, S>(coords, rows, vals_orig, n_orig, keys, seg, w, \
+                             out, *p, *g, s);                               \
+    break;
+#define INTERPOL_SPLAT_NT(N) \
+  INTERPOL_SPLAT_CASE(N, 0) INTERPOL_SPLAT_CASE(N, 1) INTERPOL_SPLAT_CASE(N, 2)
+  switch (nt * 3 + spec) {
+    INTERPOL_SPLAT_NT(1)
+    INTERPOL_SPLAT_NT(2)
+    INTERPOL_SPLAT_NT(3)
+    INTERPOL_SPLAT_NT(4)
+    INTERPOL_SPLAT_NT(5)
+    INTERPOL_SPLAT_NT(6)
+    INTERPOL_SPLAT_NT(7)
+    INTERPOL_SPLAT_NT(8)
+    default: err = cudaErrorInvalidValue; break;
   }
-
-extern "C" int interpol_splat(const float* coords, const float* vals,
-                              const long long* seg, float* scratch,
-                              float* out, const PointParams* p,
-                              const PatchGeom* g, int spec, void* stream) {
-  const int nt = max_nt(p);
-  if (nt == 0 || spec < 0 || spec > 2 || seg == nullptr ||
-      scratch == nullptr || out == nullptr || g->xslab < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  INTERPOL_DISPATCH(launch_splat, coords, vals, seg, scratch, out, *p, *g, s)
+#undef INTERPOL_SPLAT_NT
+#undef INTERPOL_SPLAT_CASE
   return (int)err;
-}
-
-extern "C" int interpol_splat_outliers(const float* coords,
-                                       const float* vals,
-                                       const int* keys,
-                                       long long begin, long long count,
-                                       long long key_base, long long* dest,
-                                       float* contrib, const PointParams* p,
-                                       int spec, void* stream) {
-  const int nt = max_nt(p);
-  if (nt == 0 || spec < 0 || spec > 2 || count < 1 || dest == nullptr ||
-      contrib == nullptr)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  INTERPOL_DISPATCH(launch_outliers, coords, vals, keys, begin, count,
-                    key_base, dest, contrib, *p, s)
-  return (int)err;
-}
-
-extern "C" int interpol_splat_segsum(const long long* dest,
-                                     const float* contrib, long long count,
-                                     float* out, const PointParams* p,
-                                     void* stream) {
-  if (count < 1 || dest == nullptr || contrib == nullptr || out == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const long long blocks = (count + 255) / 256;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  segsum_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(
-                                                 stream)>>>(dest, contrib,
-                                                            count, out, *p);
-  return (int)cudaGetLastError();
 }

@@ -23,7 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ._patch import PatchGeom, patch_geom
+from ._fixed import SplatGeom, workspace
 from .scattered import box_schedule, lift3, splat_box, splat_margins
 
 __all__ = ["gather_cuda", "splat_cuda", "LAUNCHES_BY_MODE",
@@ -61,8 +61,7 @@ _fns = {}
 
 
 def _entry(name: str):
-    """``interpol_gather`` (csrc/gather.cu) or ``interpol_splat``,
-    ``interpol_splat_outliers``, ``interpol_splat_segsum``
+    """``interpol_gather`` (csrc/gather.cu) or ``interpol_splat``
     (csrc/splat.cu), built at first use."""
     if name not in _fns:
         from ._build import load_library
@@ -72,10 +71,8 @@ def _entry(name: str):
         fn = getattr(lib, f"interpol_{name}")
         fn.argtypes = {
             "gather": [vp, vp, vp, vp, vp, pp, i, i, i, vp],
-            "splat": [vp, vp, vp, vp, vp, pp, ctypes.POINTER(PatchGeom), i,
-                      vp],
-            "splat_outliers": [vp, vp, vp, ll, ll, ll, vp, vp, pp, i, vp],
-            "splat_segsum": [vp, vp, ll, vp, pp, vp],
+            "splat": [vp, vp, vp, ll, vp, vp, vp, vp, pp,
+                      ctypes.POINTER(SplatGeom), i, vp],
         }[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -200,19 +197,35 @@ def _rows(vals, spec, D):
     return rows.permute(1, 3, 0, 2).reshape(C, rows.shape[-1], B * P)
 
 
+# The design of the scattered splat, fixed by the cloud (PERF.md §6, PR 10,
+# in turns on the H100): the box design where a point has more than 32 taps
+# and the cloud is sparser than BOX_DENSITY points per output voxel (1M
+# random points in 256^3 at cubic order: box 1.165 ms, direct 1.654); the
+# direct one elsewhere: few taps (order 1: direct 0.506, box 1.105) or a
+# dense cloud, whose box sort costs more than its atomics save (P7's
+# reslice, 16.7M points in order: direct 4.941, box 5.714).
+BOX_TAPS = 32
+BOX_DENSITY = 0.25
+
+
 def splat_cuda(vals: torch.Tensor, grid: torch.Tensor,
                oshape: Sequence[int], orders: Sequence[int],
                bounds: Sequence[int], extrapolate: int,
-               spec: str = "push") -> torch.Tensor:
+               spec: str = "push", box=None) -> torch.Tensor:
     """Scattered splat on the card: the adjoint of :func:`gather_cuda` in
     the image.
 
     ``spec`` "push": vals (B, C, P); "pushgrad": (B, C, P, D); "pushhess":
     (B, C, P, D, D) (both triangles count); grid (B, P, D), D in 1..3 ->
     (B, C, *oshape).  Same semantics as ``ndkernels.push_core`` /
-    ``pushgrad_core`` / ``pushhess_core``; race-free, so two runs give the
-    same bits.  Takes a scratch buffer of the boxes' patches and, when
-    outliers exist, one of their (destination, contribution) pairs.
+    ``pushgrad_core`` / ``pushhess_core`` up to the fixed point's rounding
+    (``csrc/fixed_splat.cuh``); two runs give the same bits.  Takes an
+    int64 accumulator, twice the output; no host sync.  ``box``: the
+    design, chosen by the taps per point and the cloud's density by
+    default: ``False`` direct (every tap straight to the accumulator),
+    ``True`` or a core per axis of the lifted volume the box design (the
+    points sorted by box, a shared patch per box; ``splat_box``'s core for
+    ``True``).  The bits do not depend on it.
     """
     name = "splat_cuda"
     if spec not in SPECS:
@@ -235,32 +248,28 @@ def splat_cuda(vals: torch.Tensor, grid: torch.Tensor,
     grid3, shape3, orders3, bounds3 = lift3(grid, oshape, orders, bounds)
     kspec, _ = SPECS[spec]
     p = _params(B, C, P, shape3, orders3, bounds3, extrapolate)
-    box = splat_box(shape3, P)
-    keys, perm, seg, nb = box_schedule(grid3, shape3, box, extrapolate)
-    coords = grid3.reshape(-1, 3).index_select(0, perm)
-    rows = _rows(vals, spec, D).index_select(2, perm).contiguous()
-    margins = [splat_margins(o) for o in orders3]
-    lo = tuple(m[0] for m in margins)
-    extent = tuple(t + m[1] - m[0] for t, m in zip(box, margins))
-    geom, scratch, tables = patch_geom(B, C, shape3, bounds3, box, lo,
-                                       extent, vals.device)
-    _call("splat", vals, coords.data_ptr(), rows.data_ptr(),
-          seg.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-          ctypes.byref(p), ctypes.byref(geom), kspec)
-    ntile = math.prod(nb)
-    begin, end = seg[B * ntile:B * ntile + B + 1:B].tolist()
-    if end > begin:
-        nt = max(orders3) + 1
-        count = end - begin
-        dest = torch.empty(count * nt ** 3, dtype=torch.int64,
-                           device=vals.device)
-        contrib = vals.new_empty((C, count * nt ** 3))
-        _call("splat_outliers", vals, coords.data_ptr(), rows.data_ptr(),
-              keys.data_ptr(), begin, count, B * ntile, dest.data_ptr(),
-              contrib.data_ptr(), ctypes.byref(p), kspec)
-        dest, order = torch.sort(dest, stable=True)
-        contrib = contrib.index_select(1, order)
-        _call("splat_segsum", vals, dest.data_ptr(), contrib.data_ptr(),
-              dest.numel(), out.data_ptr(), ctypes.byref(p))
+    coords = grid3.reshape(-1, 3)
+    rows = _rows(vals, spec, D)
+    g = SplatGeom()
+    keys = seg = None
+    if box is None:
+        box = math.prod(o + 1 for o in orders3) > BOX_TAPS \
+            and P < BOX_DENSITY * math.prod(shape3)
+    if box is not False:
+        box = splat_box(shape3, P) if box is True else tuple(
+            max(1, min(int(t), n)) for t, n in zip(box, shape3))
+        keys, perm, seg, nb = box_schedule(grid3, shape3, box, extrapolate)
+        coords = coords.index_select(0, perm)
+        rows = rows.index_select(2, perm)
+        for d in range(3):
+            lo, hi = splat_margins(orders3[d])
+            g.T[d], g.lo[d], g.E[d], g.NB[d] = box[d], lo, box[d] + hi - lo, \
+                nb[d]
+    rows = rows.contiguous()
+    ws = workspace(B * C, math.prod(shape3), vals.device)
+    _call("splat", vals, coords.data_ptr(), rows.data_ptr(), vals.data_ptr(),
+          vals.numel() // (B * C), None if keys is None else keys.data_ptr(),
+          None if seg is None else seg.data_ptr(), ws.data_ptr(),
+          out.data_ptr(), ctypes.byref(p), ctypes.byref(g), kspec)
     LAUNCHES_BY_MODE[f"sc_{spec}"] += 1
     return out

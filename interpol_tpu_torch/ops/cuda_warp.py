@@ -15,12 +15,15 @@ wrapper computes the per-tile bases once, on the card (``ops/tiles.py``,
 the same function the plain versions call), and hands the kernel three
 int32 base arrays and the TPU tile; the kernel shifts each sample's window
 test by its tile's base, a runtime branch with no template of its own.
-The push's patch then covers the union of the residual windows.  The
+The push's site tiles then lie inside one TPU tile, and each tile's patch
+spans the residual window of the tile's base.  The
 JAX package's chunked mode (sub-windows under the TPU's VMEM cap, whose
 launches sum) has no counterpart: one launch takes any window.
 
-The push is the race-free patch splat (``csrc/patch_splat.cuh``, host
-half in ``ops/_patch.py``): two runs give the same bits.
+The push is the fixed-point splat (``csrc/fixed_splat.cuh``, host half
+in ``ops/_fixed.py``): its taps are int64 integers, whose sums do not
+depend on their order, so two runs, and any two site tiles, give the same
+bits.
 
 Each wrapper takes CUDA float32 contiguous tensors only and raises on
 anything else; it never falls back to the plain version.  It also raises
@@ -33,17 +36,19 @@ through the kernels.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import math
+from functools import lru_cache
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ._patch import PatchGeom, patch_geom
+from ._fixed import SplatGeom, workspace
 from .tiles import lifted_tile, tile_bases
 from .window import _md_tuple, window_range
 
 __all__ = ["warp_cuda", "hess_cuda", "push_cuda", "warp_block",
-           "LAUNCHES", "LAUNCHES_BY_MODE", "reset_launches"]
+           "push_tile", "LAUNCHES", "LAUNCHES_BY_MODE", "reset_launches"]
 
 LAUNCHES = 0
 LAUNCHES_BY_MODE: Dict[str, int] = {
@@ -125,8 +130,9 @@ def _entry(name: str):
                            i, i, i, vp]
         else:
             fn = load_library("push").interpol_push
-            fn.argtypes = [vp, vp, vp, vp, ctypes.POINTER(_WarpParams),
-                           ctypes.POINTER(PatchGeom), i, vp]
+            fn.argtypes = [vp, vp, ctypes.c_longlong, vp, vp, vp,
+                           ctypes.POINTER(_WarpParams),
+                           ctypes.POINTER(SplatGeom), i, vp]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -301,26 +307,73 @@ def hess_cuda(inp: torch.Tensor, grid: torch.Tensor,
     return out
 
 
-# site tile of the push: 8^3 sites, a 19^3 patch (27 KB) at cubic order and
-# max_disp=4.  In adaptive mode an 8^3 tile at a multiple of 8 lies inside
-# one (8, 8, 128) tile of the TPU push, whose base it shares.
-PUSH_TILE = 8
+# shared memory a push block's patch may take (int64 cells and the fold
+# tables): four blocks of 256 threads per SM of the H100 (228 KB an SM).
+# Chosen in turns (PERF.md §6, PR 10): at 256^3 cubic max_disp=4 the tile
+# (8, 8, 8) (a 55 KB patch) takes 2.119 ms, (4, 8, 16) (62 KB, three blocks
+# an SM) 2.640, (8, 16, 16) (111 KB, two) 2.849, (16, 16, 16) (157 KB,
+# one) 4.588
+PATCH_BYTES = 56 * 1024
+# where no tile's patch fits PATCH_BYTES (a wide window: span 19 at cubic
+# max_disp=8 needs 64 KB for one site), the budget of the second try
+WIDE_BYTES = 227 * 1024
+# sites of a tile at most (16 per thread of a 256-thread block)
+_TILE_SITES = 4096
+
+
+def _patch_bytes(E) -> int:
+    """Shared memory of a patch of extents E (``patch_bytes``)."""
+    return 8 * math.prod(E) + 5 * sum(E)
+
+
+@lru_cache(maxsize=256)
+def push_tile(shape3: Tuple[int, int, int], span: Tuple[int, int, int],
+              budgets: Tuple[int, ...] = (PATCH_BYTES, WIDE_BYTES),
+              cap=None):
+    """(site tile, patch extents) of the dense push over a (lifted) 3-D
+    volume whose taps reach ``span`` cells beyond a tile on each axis (the
+    window's shifts): powers of two per axis up to the axis (and up to
+    ``cap``, a power of two per axis), at most 4096 sites, the patch (tile
+    + span) in the first of ``budgets`` (bytes) that some tile's patch
+    fits; the most sites, then the smallest patch, then the longest z.
+    Patch None when no tile's patch fits the last budget (or with no
+    budget): each tap then goes straight to the accumulator, over the
+    tiles of the most sites."""
+    def pows(n, c):
+        return [1 << i for i in range(13)
+                if (1 << i) < 2 * n and (c is None or (1 << i) <= c)]
+    cap = (None,) * 3 if cap is None else cap
+    tiles = []
+    for T in itertools.product(*(pows(n, c) for n, c in zip(shape3, cap))):
+        if math.prod(T) <= _TILE_SITES:
+            E = tuple(t + s for t, s in zip(T, span))
+            sites = math.prod(min(t, n) for t, n in zip(T, shape3))
+            tiles.append(((sites, -_patch_bytes(E), T[2], T[1]), T, E))
+    for budget in budgets:
+        fit = [t for t in tiles if -t[0][1] <= budget]
+        if fit:
+            _, T, E = max(fit)
+            return T, E
+    return max(tiles)[1], None
 
 
 def push_cuda(inp: torch.Tensor, grid: torch.Tensor,
               orders: Sequence[int], bounds: Sequence[int],
-              extrapolate: int, max_disp, spread=None, deriv: bool = False
-              ) -> torch.Tensor:
+              extrapolate: int, max_disp, spread=None, deriv: bool = False,
+              tile=None) -> torch.Tensor:
     """Dense-warp splat on the card, the adjoint of :func:`warp_cuda`.
 
     Plain: values inp (B, C, *ishape) at the sites of grid (B, *ishape,
     D) -> volume (B, C, *ishape).  ``deriv`` (pushgrad, the adjoint of
     the gradient): inp (B, C, *ishape, D) -> (B, C, *ishape).  Same
-    semantics as ``window._push_impl_torch`` / ``_pushgrad_impl_torch``;
-    race-free, so two runs give the same bits.  Takes a scratch buffer of
-    the site tiles' patches (C x B x tiles x patch floats).  ``spread``:
-    the adaptive mode (2c); the patch then spans the union of the
-    residual windows, ``ceil(max_disp)`` wider on each side.
+    semantics as ``window._push_impl_torch`` / ``_pushgrad_impl_torch``
+    up to the fixed point's rounding; two runs give the same bits.  Takes
+    an int64 accumulator, twice the output.  ``spread``: the adaptive mode
+    (2c); a site tile then lies inside one TPU tile and its patch spans
+    the residual window of that tile's base.  ``tile``: the site tile of
+    the lifted volume (:func:`push_tile`'s by default; ``(0, 0, 0)``: no
+    patch, every tap straight to the accumulator); the bits do not depend
+    on it.
     """
     name = "push_cuda"
     setup = _launch_setup(name, inp, grid, orders, bounds, extrapolate,
@@ -332,18 +385,33 @@ def push_cuda(inp: torch.Tensor, grid: torch.Tensor,
         return out.zero_()
     inp3, grid3, p, nd, bases = setup
     shape3 = tuple(p.shape)
-    tile = tuple(min(PUSH_TILE, n) for n in shape3)
-    # the largest base on each axis widens the patch (0 in plain mode)
-    reach = (0,) * 3 if bases is None else (0,) * nd + tuple(
-        math.ceil(m) for m in _md_tuple(max_disp, 3 - nd))
-    lo = tuple(p.d0min[d] - reach[d] for d in range(3))
-    extent = tuple(t + p.d0max[d] + p.order[d] + reach[d] - lo[d]
-                   for d, t in enumerate(tile))
-    geom, scratch, tables = patch_geom(B, C, shape3, tuple(p.bound), tile,
-                                       lo, extent, inp.device)
-    _call("push", inp3, inp3.data_ptr(), grid3.data_ptr(),
-          scratch.data_ptr(), out.data_ptr(), ctypes.byref(p),
-          ctypes.byref(geom), int(deriv))
+    # in adaptive mode a site tile lies inside one TPU tile (a power of two
+    # that divides it), so its sites share a base and its patch, the window
+    # of that base, moves with it
+    cap = None if bases is None else tuple(p.tile)
+    lo = tuple(p.d0min)
+    span = tuple(p.d0max[d] + p.order[d] - lo[d] for d in range(3))
+    if tile is None:
+        T, E = push_tile(shape3, span, cap=cap)
+    elif tuple(tile) == (0, 0, 0):
+        T, E = push_tile(shape3, span, (), cap)
+    else:
+        T = tuple(max(1, min(int(t), n)) for t, n in zip(tile, shape3))
+        E = tuple(t + s for t, s in zip(T, span))
+        if _patch_bytes(E) > 227 * 1024 or (cap is not None and any(
+                c % t for c, t in zip(cap, T))):
+            raise ValueError(f"{name}: tile {tuple(tile)}: its patch {E} "
+                             f"exceeds shared memory, or it does not "
+                             f"divide the adaptive tile {cap}")
+    g = SplatGeom()
+    for d in range(3):
+        g.T[d], g.lo[d] = T[d], lo[d]
+        g.E[d] = 0 if E is None else E[d]
+        g.NB[d] = -(-shape3[d] // T[d])
+    ws = workspace(B * C, math.prod(shape3), inp.device)
+    _call("push", inp3, inp3.data_ptr(), inp.data_ptr(),
+          inp.numel() // (B * C), grid3.data_ptr(), ws.data_ptr(),
+          out.data_ptr(), ctypes.byref(p), ctypes.byref(g), int(deriv))
     _count("pushgrad" if deriv else "push", spread is not None)
     return out
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time P3, one ``svf_train_step`` of the port at 256^3, on one NVIDIA GPU.
 
-    python3 p3_time.py [--root CHECKOUT] [--tag NAME] [--splats | --gathers]
+    python3 p3_time.py [--root CHECKOUT] [--tag NAME]
+                       [--splats | --gathers | --designs] [--rows TEXT]
 
 The configuration is ``chip_smoke.py``'s P3: ``SVFModel(256^3, coarse
 8^3, cubic, dct2, max_disp=4, steps=6)``, parameters 0.5 N(0,1) (numpy
@@ -14,8 +15,20 @@ one card (only public names are used).  ``--splats`` times instead the
 splats that P3 and the scattered paths run, through the public functions
 (median of 20): the dense push at 256^3 (cubic and order 1 zero-bound C=1,
 linear C=3, as P3's squarings, ``max_disp=4``), pushgrad (cubic C=1,
-``max_disp=4``; cubic C=3, ``max_disp=0``, as P3's Jacobian) and
-``grid_push`` of 1M points in 256^3 (order 1 and cubic).  ``--gathers``
+``max_disp=4``; cubic C=3, ``max_disp=0``, as P3's Jacobian), the adaptive
+push on P8's flow (``tile_spread="auto"``), the push at ``max_disp=8``
+(cubic C=1, full window and adaptive, on ``chip_smoke.py``'s flow of that
+window, ``tile_spread`` as ``required_tile_spread`` gives it), ``grid_push``
+of 1M points in 256^3 (order 1 and cubic) and of P7's 16.7M-point
+reslice (cubic), and the scattered pushgrad and pushhess of the 1M points
+(cubic), each with the device memory it allocates at its peak (output
+included).  ``--designs`` times this tree's splat designs on the same rows
+through the wrappers' private keywords (the bits do not depend on them):
+the dense push under several site tiles and with no patch, at
+``max_disp=4`` and 8, the scattered splat (push at orders 1, 2 and 3,
+pushgrad and pushhess at cubic order) direct and by box patches.
+``--rows TEXT`` runs only the splat or design rows whose name holds TEXT.
+``--gathers``
 times the gathers the same way: the dense warp at 256^3 (value and
 ``grid_grad`` at cubic order and at order 1 zero-bound, C=1; linear value
 C=3, as P3's squarings; the Hessian at cubic order; value and grad with
@@ -43,6 +56,8 @@ def main() -> None:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--splats", action="store_true")
     mode.add_argument("--gathers", action="store_true")
+    mode.add_argument("--designs", action="store_true")
+    ap.add_argument("--rows", default="")
     args = ap.parse_args()
     if args.root:
         sys.path.insert(0, args.root)
@@ -62,8 +77,8 @@ def main() -> None:
         time_gathers(vol, coarse, args.tag, card)
         return
     _build.build_all()
-    if args.splats:
-        time_splats(vol, coarse, args.tag, card)
+    if args.splats or args.designs:
+        time_splats(vol, coarse, args.tag, card, args.designs, args.rows)
         return
     rng = np.random.default_rng(0)
     moving = torch.tensor(rng.standard_normal((1, 1) + vol),
@@ -115,20 +130,59 @@ def cuda_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def time_splats(vol, coarse, tag, card):
+def peak_mib(fn):
+    """Device memory in MiB that ``fn`` allocates at its peak beyond the
+    live tensors (its output included)."""
+    import torch
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - live) / 2**20
+
+
+def time_splats(vol, coarse, tag, card, designs=False, only=""):
+    import math
     import numpy as np
     import torch
-    from interpol_tpu_torch import WarpModel, grid_push
-    from interpol_tpu_torch.ops.window import pushgrad_window
+    from interpol_tpu_torch import (WarpModel, affine_grid, grid_push,
+                                    required_tile_spread)
+    from interpol_tpu_torch.ops import cuda_scattered, cuda_warp
+    from interpol_tpu_torch.ops.scattered import pushgrad_scattered
+    from interpol_tpu_torch.ops.window import push_window, pushgrad_window
     model = WarpModel(vol_shape=vol, coarse_shape=coarse, interpolation=3,
                       bound="dct2", max_disp=4.0, device="cuda")
     model.load_jax_params(0.5 * np.random.default_rng(0).standard_normal(
         (1,) + coarse + (3,)))
+    p8 = WarpModel(vol_shape=vol, coarse_shape=coarse, interpolation=3,
+                   bound="dct2", max_disp=4.0, tile_spread="auto",
+                   device="cuda")
+    p8.load_jax_params(np.full((1,) + coarse + (3,), 0.01))
+    sp = p8.auto_tile_spread()
+    # chip_smoke.py's max_disp=8 flow
+    m8 = WarpModel(vol_shape=vol, coarse_shape=coarse, interpolation=3,
+                   bound="dct2", max_disp=8.0, tile_spread="auto",
+                   device="cuda")
+    m8.load_jax_params(0.5 * np.random.default_rng(0).standard_normal(
+        (1,) + coarse + (3,)))
     gen = torch.Generator("cuda").manual_seed(0)
     with torch.no_grad():
         flow = model.dense_flow().contiguous()
+        flow8 = p8.dense_flow().contiguous()
+        wide = m8.dense_flow().contiguous()
+        sp8 = tuple(required_tile_spread(wide))
         ident = model.dense_flow(torch.zeros_like(model.params)) \
             .contiguous()
+        # P7: 10 degrees about the centre (axes 0, 1), 2 voxels along x
+        c, t = (vol[0] - 1) / 2, math.radians(10.0)
+        rot = np.array([[math.cos(t), -math.sin(t), 0],
+                        [math.sin(t), math.cos(t), 0], [0, 0, 1]])
+        mat = np.eye(4)
+        mat[:3, :3] = rot
+        mat[:3, 3] = np.full(3, c) - rot @ np.full(3, c) + [2, 0, 0]
+        reslice = affine_grid(torch.tensor(mat, dtype=torch.float32,
+                                           device="cuda"), vol)
         v1 = torch.randn((1, 1) + vol, device="cuda", generator=gen)
         v3 = torch.randn((1, 3) + vol, device="cuda", generator=gen)
         g1 = torch.randn((1, 1) + vol + (3,), device="cuda", generator=gen)
@@ -138,7 +192,17 @@ def time_splats(vol, coarse, tag, card):
                            .astype(np.float32), device="cuda")
         vals = torch.randn((1, 1_000_000, 1, 1), device="cuda",
                            generator=gen)
+        v7 = torch.randn((1, 1) + vol, device="cuda", generator=gen)
+        cloud = pts.reshape(1, -1, 3)
+        c3 = torch.randn((1, 1, 1_000_000, 3), device="cuda", generator=gen)
+        c33 = torch.randn((1, 1, 1_000_000, 3, 3), device="cuda",
+                          generator=gen)
         cubic = dict(interpolation=3, bound="dct2", extrapolate=True)
+        o3 = ((3,) * 3, (3,) * 3, 1)
+        if designs:
+            time_designs(v1, v3, flow, vals, cloud, v7, reslice, tag, card,
+                         flow8, sp, wide, sp8, c3, c33, only)
+            return
         rows = [
             ("push cubic C=1", lambda: grid_push(v1, flow, max_disp=4.0,
                                                   **cubic)),
@@ -156,10 +220,91 @@ def time_splats(vol, coarse, tag, card):
                 vals, pts, shape=vol, interpolation=1, bound="dct2",
                 extrapolate=True)),
             ("sc_push 1M points cubic", lambda: grid_push(
-                vals, pts, shape=vol, **cubic))]
+                vals, pts, shape=vol, **cubic)),
+            (f"push_ad cubic C=1 P8 flow spread {sp}", lambda: push_window(
+                v1, flow8, *o3, 4.0, sp)),
+            ("push cubic C=1 max_disp 8", lambda: grid_push(
+                v1, wide, max_disp=8.0, **cubic)),
+            (f"push_ad cubic C=1 max_disp 8 spread "
+             f"{tuple(round(x, 4) for x in sp8)}",
+             lambda: push_window(v1, wide, *o3, 8.0, sp8)),
+            ("sc_pushgrad 1M points cubic", lambda: pushgrad_scattered(
+                c3[0], cloud[0], vol, *o3)),
+            ("sc_pushhess 1M points cubic",
+             lambda: cuda_scattered.splat_cuda(c33, cloud, vol, *o3,
+                                               spec="pushhess")),
+            ("P7 reslice sc_push 16.7M points cubic", lambda: grid_push(
+                v7, reslice, shape=vol, interpolation=3, bound="dct2"))]
         for name, fn in rows:
-            print(f"splat {name} 256^3 [{tag}]: {cuda_ms(fn):.3f} ms "
-                  f"(median of 20) [{card}]", flush=True)
+            if only not in name:
+                continue
+            ms = cuda_ms(fn)
+            print(f"splat {name} 256^3 [{tag}]: {ms:.3f} ms (median of 20), "
+                  f"peak +{peak_mib(fn):.0f} MiB [{card}]", flush=True)
+
+
+def time_designs(v1, v3, flow, vals, cloud, v7, reslice, tag, card, flow8,
+                 sp, wide, sp8, c3, c33, only=""):
+    """The dense push under several site tiles and with no patch (tile (0,
+    0, 0)): at ``max_disp=4`` cubic C=1, linear C=3 (P3's squarings) and
+    C=1 on P2's flow, and the adaptive push on P8's flow; at
+    ``max_disp=8`` (span 19, no tile's patch within 56 KB) cubic C=1, full
+    window and adaptive, on the wide flow.  The scattered splat direct and
+    by box patches (8^3, 16^3) on 1M random points (push at orders 1, 2
+    and 3, pushgrad and pushhess at cubic order) and on P7's 16.7M ordered
+    ones (cubic)."""
+    import torch
+    from interpol_tpu_torch.ops import cuda_scattered, cuda_warp
+    vol = tuple(v1.shape[2:])
+    rows = []
+    for order, inp in ((3, v1), (1, v3), (1, v1)):
+        opts = ((order,) * 3, (3,) * 3, 1, 4.0)
+        for tile in (None, (4, 8, 8), (8, 8, 8), (4, 8, 16), (8, 16, 16),
+                     (0, 0, 0)):
+            rows.append((f"push order {order} C={inp.shape[1]} tile "
+                         f"{tile or 'default'}",
+                         lambda i=inp, o=opts, t=tile: cuda_warp.push_cuda(
+                             i, flow, *o, tile=t)))
+    ad = ((3,) * 3, (3,) * 3, 1, 4.0, sp)
+    for tile in (None, (4, 8, 8), (0, 0, 0)):
+        rows.append((f"push_ad cubic C=1 P8 flow spread {sp} tile "
+                     f"{tile or 'default'}",
+                     lambda t=tile: cuda_warp.push_cuda(v1, flow8, *ad,
+                                                        tile=t)))
+    o8 = ((3,) * 3, (3,) * 3, 1, 8.0)
+    for spread, tiles in ((None, ((4, 4, 4), (2, 8, 8), (4, 4, 8),
+                                  (4, 8, 8), (8, 8, 8), (4, 8, 16))),
+                          (sp8, ((4, 4, 4), (4, 4, 8), (4, 8, 8),
+                                 (8, 8, 8)))):
+        for tile in (None,) + tiles + ((0, 0, 0),):
+            rows.append((f"push{'_ad' if spread else ''} cubic C=1 max_disp "
+                         f"8 tile {tile or 'default'}",
+                         lambda s=spread, t=tile: cuda_warp.push_cuda(
+                             v1, wide, *o8, s, tile=t)))
+    p7 = reslice.reshape(1, -1, 3).contiguous()
+    v7 = v7.reshape(1, 1, -1)
+    vv1 = vals.reshape(1, 1, -1)
+    for name, pts, vv, orders, spec in (
+            ("1M points order 1", cloud, vv1, 1, "push"),
+            ("1M points order 2", cloud, vv1, 2, "push"),
+            ("1M points cubic", cloud, vv1, 3, "push"),
+            ("1M points cubic pushgrad", cloud, c3, 3, "pushgrad"),
+            ("1M points cubic pushhess", cloud, c33, 3, "pushhess"),
+            ("P7 16.7M points cubic", p7, v7, 3, "push")):
+        for box in (False, (8, 8, 8), (16, 16, 16), None):
+            rows.append((f"sc_push {name} box {box} (False: direct, None: "
+                         f"default)",
+                         lambda p=pts, v=vv, o=orders, b=box, k=spec:
+                         cuda_scattered.splat_cuda(
+                             v, p, vol, (o,) * 3, (3,) * 3, 1, spec=k,
+                             box=b)))
+    with torch.no_grad():
+        for name, fn in rows:
+            if only not in name:
+                continue
+            ms = cuda_ms(fn)
+            print(f"design {name} 256^3 [{tag}]: {ms:.3f} ms (median of "
+                  f"20), peak +{peak_mib(fn):.0f} MiB [{card}]", flush=True)
 
 
 def time_gathers(vol, coarse, tag, card):

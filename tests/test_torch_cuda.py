@@ -13,6 +13,8 @@ a GPU machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -251,7 +253,7 @@ def test_scattered_kernels_match_plain(cuda_device, orders, bounds, ex, ish,
                                       ("pushgrad", nd.pushgrad_core),
                                       ("pushhess", nd.pushhess_core)]):
         assert_close(splats[spec], core(vals[k], grid, ish, *opts))
-        # race-free: a second run gives the same bits
+        # fixed-point sums: a second run gives the same bits
         again = cuda_scattered.splat_cuda(vals[k], grid, ish, *opts,
                                           spec=spec)
         assert torch.equal(again, splats[spec])
@@ -279,7 +281,7 @@ def test_push_kernels_are_deterministic(cuda_device):
                                first)
 
 
-# the race-free splat (csrc/patch_splat.cuh): orders 0-7 over the bounds,
+# the fixed-point splat (csrc/fixed_splat.cuh): orders 0-7 over the bounds,
 # B=2, C=3; odd shapes (several 8^3 site tiles), a shape under one tile,
 # dft with odd tile counts (3 along y and z), max_disp 0 and 8, adaptive,
 # 2-D
@@ -347,6 +349,224 @@ def test_scattered_splat_matches_plain_and_repeats(cuda_device, orders,
         assert_close(out, core(vals, grid, ish, *opts))
         assert torch.equal(cuda_scattered.splat_cuda(vals, grid, ish, *opts,
                                                      spec=spec), out)
+
+
+# the splat designs: ``box`` of cuda_scattered.splat_cuda (False: direct)
+SC_DESIGNS = [False, True, (4, 4, 4), (8, 2, 16)]
+
+
+@pytest.mark.parametrize("orders,bounds,ex,ish,md,sp", DENSE_SPLATS[:4]
+                         + DENSE_SPLATS[9:] + DENSE_SPLATS[8:9])
+def test_dense_splat_same_bits_under_any_tile(cuda_device, orders, bounds,
+                                              ex, ish, md, sp):
+    """Integer sums do not depend on their order: the default site tile,
+    two others and no patch at all give the same bits."""
+    inp, grid = warp_case(cuda_device, ish, C=2, disp=md or 0.5, B=2)
+    ct = torch.randn(inp.shape + (len(ish),), device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(4))
+    opts = (orders, bounds, ex, md, sp)
+    for args, kw in [((inp,), {}), ((ct,), dict(deriv=True))]:
+        first = cuda_warp.push_cuda(*args, grid, *opts, **kw)
+        for tile in ((0, 0, 0), (2, 4, 8), (1, 1, 32)):
+            assert torch.equal(cuda_warp.push_cuda(*args, grid, *opts,
+                                                   tile=tile, **kw), first)
+
+
+@pytest.mark.parametrize("orders,bounds,ex,ish,P", SCATTERED_SPLATS)
+def test_scattered_splat_same_bits_in_every_design(cuda_device, orders,
+                                                   bounds, ex, ish, P):
+    """Direct and by box patches (two box shapes), every spec: the same
+    bits."""
+    _, grid = sc_case(cuda_device, ish, P, C=2, seed=8)
+    D = len(ish)
+    gen = torch.Generator(cuda_device).manual_seed(9)
+    for k, spec in enumerate(("push", "pushgrad", "pushhess")):
+        vals = torch.randn((2, 2, P) + (D,) * k, device=cuda_device,
+                           generator=gen)
+        first = cuda_scattered.splat_cuda(vals, grid, ish, orders, bounds,
+                                          ex, spec=spec)
+        for box in SC_DESIGNS:
+            if isinstance(box, tuple):
+                box = box[:D] + (1,) * (3 - D)
+            assert torch.equal(cuda_scattered.splat_cuda(
+                vals, grid, ish, orders, bounds, ex, spec=spec, box=box),
+                first)
+
+
+@pytest.mark.parametrize("orders", [(1, 1, 1), (3, 3, 3), (2, 0, 5)])
+def test_dense_push_is_the_scattered_splat_of_its_sites(cuda_device,
+                                                        orders):
+    """On a grid that keeps max_disp, the dense push (kernel 2) and the
+    scattered splat (kernel 4) of the same sites compute each tap with the
+    same helpers (axis_weights, tap_value) at the same scale, so their
+    integer sums, and outputs, are equal bit for bit."""
+    ish = (20, 17, 24)
+    inp, grid = warp_case(cuda_device, ish, C=2, disp=2.0, B=2)
+    ct = torch.randn(inp.shape + (3,), device=cuda_device,
+                     generator=torch.Generator(cuda_device).manual_seed(5))
+    for bounds in ((3, 3, 3), (0, 6, 4)):
+        opts = (orders, bounds, 1)
+        pts = grid.reshape(2, -1, 3)
+        assert torch.equal(
+            cuda_warp.push_cuda(inp, grid, *opts, 2.0),
+            cuda_scattered.splat_cuda(inp.reshape(2, 2, -1), pts, ish,
+                                      *opts))
+        assert torch.equal(
+            cuda_warp.push_cuda(ct, grid, *opts, 2.0, deriv=True),
+            cuda_scattered.splat_cuda(ct.reshape(2, 2, -1, 3), pts, ish,
+                                      *opts, spec="pushgrad"))
+
+
+@pytest.mark.parametrize("bound", range(7))
+def test_scattered_splat_outliers_extrapolated(cuda_device, bound):
+    """extrapolate=True keeps the points outside the volume on every
+    bound: every spec within the gate of the plain core, every design the
+    same bits."""
+    ish = (13, 11, 9)
+    _, grid = sc_case(cuda_device, ish, 3000, C=2, seed=bound)
+    gen = torch.Generator(cuda_device).manual_seed(bound)
+    for k, (spec, core) in enumerate([("push", nd.push_core),
+                                      ("pushgrad", nd.pushgrad_core),
+                                      ("pushhess", nd.pushhess_core)]):
+        vals = torch.randn((2, 2, 3000) + (3,) * k, device=cuda_device,
+                           generator=gen)
+        opts = ((3, 2, 1), (bound,) * 3, 1)
+        out = cuda_scattered.splat_cuda(vals, grid, ish, *opts, spec=spec)
+        assert_close(out, core(vals, grid, ish, *opts))
+        for box in SC_DESIGNS:
+            assert torch.equal(cuda_scattered.splat_cuda(
+                vals, grid, ish, *opts, spec=spec, box=box), out)
+
+
+def test_splat_values_spanning_six_decades(cuda_device):
+    """Values of random sign from 1e-3 to 1e3: within the gate of the
+    plain versions.  The fixed point's own error is absolute per slice:
+    each of the K taps that reach a voxel is rounded by at most half a
+    quantum 2^-k < 2 S 2^-62 (S = mass x sum|v| of the slice, mass 1 for
+    push), so a voxel is off by at most K S 2^-62 besides the float32
+    rounding of the taps (a few ulp of the sum of their magnitudes) and of
+    the result; held here against the float64 plain push."""
+    rng = np.random.default_rng(11)
+    ish = (24, 20, 28)
+    P = 20000
+    pts = torch.tensor(rng.uniform(-0.4, np.asarray(ish) - 0.6, (1, P, 3)),
+                       dtype=torch.float32, device=cuda_device)
+    mags = 10.0 ** rng.uniform(-3, 3, (1, 2, P))
+    vals = torch.tensor(mags * rng.choice([-1.0, 1.0], (1, 2, P)),
+                        dtype=torch.float32, device=cuda_device)
+    opts = ((3, 3, 3), (3, 3, 3), 1)
+    out = cuda_scattered.splat_cuda(vals, pts, ish, *opts)
+    assert_close(out, nd.push_core(vals, pts, ish, *opts))
+    ref = nd.push_core(vals.double(), pts.double(), ish, *opts)
+    mag = nd.push_core(vals.double().abs(), pts.double(), ish, *opts)
+    S = vals.double().abs().sum(-1)[..., None, None, None]
+    K = 64 * P
+    bound = K * S * 2.0 ** -62 + 2.0 ** -20 * mag + 2.0 ** -23 * ref.abs()
+    assert torch.all((out.double() - ref).abs() <= bound)
+    dense_inp, dense_grid = warp_case(cuda_device, ish, C=2, disp=1.5)
+    dense_inp = dense_inp * torch.tensor(
+        10.0 ** rng.uniform(-3, 3, dense_inp.shape), dtype=torch.float32,
+        device=cuda_device)
+    assert_close(cuda_warp.push_cuda(dense_inp, dense_grid, *opts, 1.5),
+                 tw._push_impl_torch(dense_inp, dense_grid, *opts, 1.5))
+
+
+@pytest.mark.parametrize("spec", ["push", "pushgrad", "pushhess"])
+def test_splat_scale_per_slice(cuda_device, spec):
+    """The scale kernel's k per slice (b, c) is 62 - ceil(log2(mass x
+    sum|v|)), mass 1 / 2 / 4 for push / pushgrad / pushhess (the rule of
+    the emulation in test_torch_fixed_splat.py): taps of exactly 1.5 and
+    1.25 quanta at that k come out as 2 and 1 quanta (half to even), where
+    k + 1 would give 1.5 quanta and k - 1 two of them.  The probes are
+    too small to move the float64 sum, so S is a power of two, mass x 1
+    or mass x 2^10 in the second channel, and ceil(log2 S) = log2 S."""
+    mass, extra = {"push": (1, 0), "pushgrad": (2, 1),
+                   "pushhess": (4, 2)}[spec]
+    # the slice's sum at (2, 3, 4); the probes on integer coordinates, so
+    # each puts its value, times a weight or derivative of 1, on one node
+    pts = torch.tensor([[[2.0, 3.0, 4.0], [10.0, 10.0, 10.0],
+                         [5.0, 12.0, 3.0]]], device=cuda_device)
+    node = [(0, 0, 0), (1, 0, 0), (1, 1, 0)][extra]   # +1: the w' node
+    at = (0,) * extra if spec == "pushgrad" else (0, 1)[:extra]
+    sums = (1.0, 2.0 ** 10)
+    k = [62 - int(math.log2(mass * s)) for s in sums]
+    vals = torch.zeros((1, 2, 3) + (3,) * extra, device=cuda_device)
+    for c, (s, kc) in enumerate(zip(sums, k)):
+        for p, x in enumerate((s, 1.5 * 2.0 ** -kc, 1.25 * 2.0 ** -kc)):
+            vals[(0, c, p) + at] = x
+    for box in (None, False, True):
+        out = cuda_scattered.splat_cuda(vals, pts, (16, 16, 16), (1, 1, 1),
+                                        (3, 3, 3), 1, spec=spec, box=box)
+        for c, kc in enumerate(k):
+            for p, quanta in ((1, 2), (2, 1)):
+                ix = tuple(int(pts[0, p, d]) + node[d] for d in range(3))
+                assert out[(0, c) + ix].item() == quanta * 2.0 ** -kc
+
+
+def test_splat_non_finite_values_and_coordinates(cuda_device):
+    """What a non-finite input gives, pinned: a NaN or inf value makes its
+    whole slice (b, c) NaN (no quantum can hold it), the other slices keep
+    their bits; a non-finite coordinate of a kept point makes the slices of
+    its batch NaN; a masked point, and a dense site whose coordinate is not
+    finite (it fails the window test), add nothing."""
+    ish = (9, 10, 11)
+    _, grid = sc_case(cuda_device, ish, 400, B=2, C=3, seed=12)
+    vals = torch.randn((2, 3, 400), device=cuda_device)
+    opts = ((3, 3, 3), (3, 3, 3), 1)
+    clean = cuda_scattered.splat_cuda(vals, grid, ish, *opts)
+    for bad in (float("nan"), float("inf")):
+        v = vals.clone()
+        v[1, 2, 17] = bad
+        for box in SC_DESIGNS:
+            out = cuda_scattered.splat_cuda(v, grid, ish, *opts, box=box)
+            assert torch.isnan(out[1, 2]).all()
+            keep = torch.ones((2, 3), dtype=torch.bool)
+            keep[1, 2] = False
+            assert torch.equal(out[keep], clean[keep])
+    g = grid.clone()
+    g[0, 5, 1] = float("nan")
+    out = cuda_scattered.splat_cuda(vals, g, ish, *opts)
+    assert torch.isnan(out[0]).all() and torch.equal(out[1], clean[1])
+    # masked (extrapolate=0): the non-finite points fail the mask and add
+    # nothing, as points far outside do
+    masked = ((3, 3, 3), (3, 3, 3), 0)
+    g[0, 6, 0] = float("inf")
+    far = torch.where(torch.isfinite(g), g, torch.full_like(g, -100.0))
+    out = cuda_scattered.splat_cuda(vals, g, ish, *masked)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, cuda_scattered.splat_cuda(vals, far, ish,
+                                                      *masked))
+    inp, dense = warp_case(cuda_device, ish, C=2, disp=1.0)
+    dense[0, 3, 4, 5, 0] = float("nan")
+    out = cuda_warp.push_cuda(inp, dense, *opts, 1.0)
+    assert torch.isfinite(out).all()
+    assert_close(out, tw._push_impl_torch(inp, dense, *opts, 1.0))
+
+
+def test_push_peak_memory_256_cubic(cuda_device):
+    """The 256^3 cubic max_disp=4 push allocates its output and an int64
+    accumulator (twice the output) and nothing else of that order: under 2
+    x the output beyond the output itself (the inputs are 3-D and
+    contiguous, so the wrapper copies none)."""
+    vol = (256, 256, 256)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    inp = torch.randn((1, 1) + vol, device=cuda_device, generator=gen)
+    ident = torch.stack(torch.meshgrid(
+        *[torch.arange(n, device=cuda_device, dtype=torch.float32)
+          for n in vol], indexing="ij"), -1)[None]
+    grid = ident + torch.rand(ident.shape, device=cuda_device,
+                              generator=gen) * 2 - 1
+    del ident
+    opts = ((3, 3, 3), (3, 3, 3), 1, 4.0)
+    for kw, args in [({}, (inp,)), ({"tile": (0, 0, 0)}, (inp,))]:
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = cuda_warp.push_cuda(*args, grid, *opts, **kw)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - live - out.numel() * 4
+        assert extra <= 2 * out.numel() * 4 + 2**20
+        del out
 
 
 def _second_order(device, op):
@@ -440,7 +660,8 @@ def test_adaptive_kernels_match_plain(cuda_device, orders, bounds, ex, ish,
     # the spread is broken: taps were dropped
     full = cuda_warp.warp_cuda(inp, grid, *opts[:4])[0]
     assert (val - full).abs().max() > 1e-3
-    # race-free: the adaptive splats give the same bits on a second run
+    # fixed-point sums: the adaptive splats give the same bits on a second
+    # run
     assert torch.equal(cuda_warp.push_cuda(inp, grid, *opts), p)
     assert torch.equal(cuda_warp.push_cuda(ct, grid, *opts, deriv=True), pg)
 
