@@ -27,7 +27,12 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    on grids that break the declared spread (taps dropped), over orders
    0/1/3/5, bounds, D = 1/2/3, and the wide windows (``max_disp=8`` in one
    launch, an adaptive residual of span 13); the adaptive splats equal
-   across two runs;
+   across two runs; then the splats' scale over the kept items (1e30, inf
+   or NaN at every point the mask drops and at every dense site masked or
+   outside its window leave every splat, both designs, with and without a
+   patch, bit-equal to the call with those values at 0, held to the plain
+   versions) and launches past 65535 rows (kernels 2 and 4 at B x C =
+   65536 and 70000, kernel 1 at B = 65536);
 4. the training steps at a small size on the card (kernels) against the
    same steps on the CPU (plain versions);
 5. the main paths at full width, each with the launch counts set to 0
@@ -1420,6 +1425,162 @@ def phase_adaptive_kernels(errs) -> None:
         f"{fmt(e)}")
 
 
+# ------------------------------------------------------------ faults
+# values that an item the splat drops may carry: none may reach its slice's
+# scale (csrc/fixed_splat.cuh), so none may change a bit of the output
+DROPPED = (1e30, math.inf, math.nan)
+
+
+def dense_kept(grid, orders, ex, md, sp):
+    """(B, *ishape) bool: the sites that kernel 2 keeps (site_kept): the
+    plain versions' mask (``window._mask``: the extrapolation mask, and in
+    adaptive mode the window test shifted by each push tile's base) and,
+    in the plain mode, the window test of the node origin's offset."""
+    D = grid.shape[-1]
+    ishape = tuple(grid.shape[1:-1])
+    m = window._mask(grid, ishape, ex, torch.float32, orders, md, sp,
+                     push=True)
+    keep = torch.ones(grid.shape[:-1], dtype=torch.bool, device=grid.device)
+    if m is not None:
+        keep &= m > 0
+    if sp is None:
+        for d, mdd in enumerate(window._md_tuple(md, D)):
+            n0 = torch.floor(grid[..., d] - 0.5 * (orders[d] - 1)) \
+                if orders[d] else torch.round(grid[..., d])
+            shape = [1] * (D + 1)
+            shape[1 + d] = ishape[d]
+            r = n0 - torch.arange(ishape[d], device=grid.device
+                                  ).reshape(shape)
+            smin, smax = window.window_range(orders[d], mdd)
+            keep &= (r >= smin) & (r <= smax - orders[d])
+    return keep
+
+
+def dirty_and_zero(vals, keep):
+    """(vals with every dropped item's values zeroed, the same with each
+    of DROPPED there in turn)."""
+    k = keep[:, None].reshape(keep.shape[:1] + (1,) + keep.shape[1:]
+                              + (1,) * (vals.ndim - keep.ndim - 1))
+    return (torch.where(k, vals, 0.0),
+            [torch.where(k, vals, bad) for bad in DROPPED])
+
+
+def phase_faults(errs) -> None:
+    """The splats' scale over the kept items and the launches past 65535
+    rows, on the card against the plain versions.  (1) An item the splat
+    drops (a point the mask drops; a dense site masked or outside its
+    window) sets no scale: with 1e30, inf or NaN at every dropped item,
+    kernels 2 (push, pushgrad, full window and adaptive, with and without
+    a patch) and 4 (every spec, direct and box) equal bit for bit their
+    own calls with those values zeroed, held to the plain versions of the
+    zeroed values.  (2) More than 65535 slices, channels or batches:
+    kernels 2 and 4 at B x C = 65536 and 70000, kernel 1 at B = 65536,
+    held to the plain versions."""
+    n = 0
+    # (1) dense: a fifth of the displacements x4 (window-dropped), masked
+    # sites at the edges (extrapolate 0), adaptive on a spread-breaking grid
+    for spec, orders, bounds, ex, ish, md, sp, brk in [
+            ("push", (3, 3, 3), (3, 3, 3), 0, (19, 21, 37), 1.5, None, 4.0),
+            ("pushgrad", (3, 3, 3), (6, 0, 4), 0, (19, 21, 37), 1.5, None,
+             4.0),
+            ("push", (3, 3, 3), (3, 3, 3), 0, (20, 17, 140), 2.0, 0.5, 0.0),
+            ("pushgrad", (3, 1), (3, 0), 1, (30, 140), 2.0, 0.5, 0.0)]:
+        inp, grid = warp_case(2, 3, ish, md, 30 + n, break_contract=brk)
+        if sp is not None:
+            grid[0, :8] += 1.0
+        D = len(ish)
+        keep = dense_kept(grid, orders, ex, md, sp)
+        vals = inp if spec == "push" else cotangent(inp.shape + (D,), 31)
+        zero, dirty = dirty_and_zero(vals, keep)
+        opts = (orders, bounds, ex, md, sp)
+        deriv = spec == "pushgrad"
+        plain = _pushgrad_impl_torch if deriv else _push_impl_torch
+        clean = cuda_warp.push_cuda(zero, grid, *opts, deriv=deriv)
+        mode = spec + ("" if sp is None else "_ad")
+        e = hold(errs, mode, f"fault 1 {mode} {ish}", clean,
+                 plain(zero, grid, *opts))
+        for bad in dirty:
+            for tile in (None, (0, 0, 0)):
+                if not torch.equal(cuda_warp.push_cuda(
+                        bad, grid, *opts, deriv=deriv, tile=tile), clean):
+                    raise AssertionError(
+                        f"fault 1: {mode} {ish}: a value at a dropped site "
+                        f"changed the output (tile {tile})")
+        log(f"fault 1: {mode} (2,3,{','.join(map(str, ish))}) orders "
+            f"{orders} ex {ex} max_disp {md} tile_spread {sp}: "
+            f"{int((~keep).sum())} of {keep.numel()} sites dropped, at "
+            f"1e30 / inf / NaN equal to the call with them zeroed (default "
+            f"tile and no patch); vs plain err {e:.3g}")
+        n += 1
+    # (1) scattered: points outside the mask on every side; the last cloud
+    # has more than 32 points per output voxel and channel (the keep bits
+    # in the workspace, not in the output)
+    for orders, bounds, ex, ish, P in [
+            ((3, 3, 3), (3, 3, 3), 0, (19, 21, 37), 3000),
+            ((1, 2), (6, 4), 2, (33, 18), 700),
+            ((1, 1), (3, 3), 0, (4, 3), 3000)]:
+        _, grid = sc_cloud(ish, P, 40 + n, B=2)
+        keep = ndkernels.inbounds_mask(grid, ish, ex, torch.float32) > 0
+        opts = (orders, bounds, ex)
+        for k, (mode, (core, nd_)) in enumerate(SPLAT.items()):
+            vals = cotangent((2, 3, P) + (len(ish),) * nd_, 50 + k)
+            zero, dirty = dirty_and_zero(vals, keep)
+            clean = splat_kernel(zero, grid, ish, opts, mode)
+            e = hold(errs, mode, f"fault 1 {mode} {ish}", clean,
+                     core(zero, grid, ish, *opts))
+            for bad in dirty:
+                for box in (False, True):
+                    if not torch.equal(splat_kernel(bad, grid, ish, opts,
+                                                    mode, box=box), clean):
+                        raise AssertionError(
+                            f"fault 1: {mode} {ish}: a value at a masked "
+                            f"point changed the output (box {box})")
+            log(f"fault 1: {mode} (2,3) {P} points in {ish} orders {orders} "
+                f"ex {ex}: {int((~keep).sum())} masked, at 1e30 / inf / NaN "
+                f"equal to the call with them zeroed (direct and box); vs "
+                f"plain err {e:.3g}")
+        n += 1
+    # (2) more than 65535 slices, channels or batches, tiny volumes
+    ish = (3, 4, 5)
+    opts = ((3, 1, 2), (3, 6, 0), 1)
+    gen = torch.Generator(DEV).manual_seed(60)
+    for B, C in ((1, 65536), (70000, 1)):
+        inp, grid = warp_case(B, C, ish, 0.5, 61)
+        ct = torch.randn(inp.shape + (3,), device=DEV, generator=gen)
+        for mode, vals, deriv, plain in [
+                ("push", inp, False, _push_impl_torch),
+                ("pushgrad", ct, True, _pushgrad_impl_torch)]:
+            out = cuda_warp.push_cuda(vals, grid, *opts, 0.5, deriv=deriv)
+            e = hold(errs, mode, f"fault 2 {mode} B={B} C={C}", out,
+                     plain(vals, grid, *opts, 0.5))
+            if not torch.equal(out, cuda_warp.push_cuda(
+                    vals, grid, *opts, 0.5, deriv=deriv, tile=(0, 0, 0))):
+                raise AssertionError(f"fault 2: {mode} B={B} C={C}: no "
+                                     f"patch gives other bits")
+            log(f"fault 2: {mode} B={B} C={C} {ish}: err {e:.3g}, the same "
+                f"bits without a patch")
+        pts = torch.rand((B, 7, 3), device=DEV, generator=gen) \
+            * torch.tensor(ish, device=DEV) - 0.5
+        vals = torch.randn((B, C, 7), device=DEV, generator=gen)
+        out = splat_kernel(vals, pts, ish, opts, "sc_push", box=False)
+        e = hold(errs, "sc_push", f"fault 2 sc_push B={B} C={C}", out,
+                 ndkernels.push_core(vals, pts, ish, *opts))
+        if not torch.equal(out, splat_kernel(vals, pts, ish, opts,
+                                             "sc_push", box=True)):
+            raise AssertionError(f"fault 2: sc_push B={B} C={C}: the "
+                                 f"designs give other bits")
+        log(f"fault 2: sc_push B={B} C={C}, 7 points a batch into {ish}: "
+            f"err {e:.3g}, direct and box the same bits")
+    inp, grid = warp_case(65536, 1, ish, 0.5, 62)
+    val, g = cuda_warp.warp_cuda(inp, grid, (3, 3, 3), (3, 3, 3), 1, 0.5,
+                                 value=True, grad=True)
+    e = max(hold(errs, "value", "fault 2 value B=65536", val,
+                 _pull_impl_torch(inp, grid, (3, 3, 3), (3, 3, 3), 1, 0.5)),
+            hold(errs, "grad", "fault 2 grad B=65536", g,
+                 _grad_impl_torch(inp, grid, (3, 3, 3), (3, 3, 3), 1, 0.5)))
+    log(f"fault 2: kernel 1 value+grad B=65536 {ish}: err {e:.3g}")
+
+
 class LevelTimer:
     """Time each ``run_level`` that ``register`` makes (host clock around
     work that ends in a synchronize)."""
@@ -2306,6 +2467,8 @@ def main() -> None:
     lap("scattered kernels")
     phase_adaptive_kernels(errs)
     lap("adaptive kernels")
+    phase_faults(errs)
+    lap("faults")
     phase_train_small()
     lap("small train steps")
     main_path = phase_main(errs, drive)

@@ -46,6 +46,8 @@ from .models.pyramid import (  # noqa: F401
     PyramidModel, image_pyramid, register, run_level,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "grid_pull", "grid_push", "grid_count", "grid_grad", "pull", "push",
     "count", "spline_coeff", "spline_coeff_nd", "identity_grid",

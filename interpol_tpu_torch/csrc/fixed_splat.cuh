@@ -8,13 +8,24 @@
 // and under any launch geometry, as the JAX package's race-free splats do.
 // Steps of one splat, all on the card's stream, no host sync:
 //
-//   1. scale_kernel: per slice (b, c), S = mass * sum |vals| bounds the
-//      absolute sum any voxel of the slice can receive (mass: the spec's
-//      largest tap mass per item, below); k = 62 - ceil(log2 S), the
-//      slice's taps are scaled by 2^k.  Every partial sum, in any order,
-//      then stays below 2^63.  The sum runs in float64 in a fixed order
-//      (128 chunks per slice, a fixed tree in each, the last block of a
-//      slice sums the chunks), so k depends on the values alone;
+//   1. the scale: per slice (b, c), S = mass * sum |v| over the values of
+//      the items that the splat keeps bounds the absolute sum any voxel of
+//      the slice can receive (mass: the spec's largest tap mass per item,
+//      below); k = 62 - ceil(log2 S), the slice's taps are scaled by 2^k.
+//      Every partial sum, in any order, then stays below 2^63.  An item is
+//      a scattered point or a dense site.  keep_kernel runs the keep test
+//      that the splat kernels call (point_kept: the extrapolation mask;
+//      site_kept: the mask and the window test) once per item, on the
+//      caller's coordinates in their original order, into a bit per item
+//      (kept in the output, which step 3 overwrites, where they fit); so a
+//      box sort or a site tile never reaches S.  An item the splat
+//      drops adds nothing to S either: whatever its value (1e30, inf, NaN),
+//      the rest of the slice keeps the bits it has without it.
+//      scale_kernel sums in float64 in a fixed order (128 chunks of the
+//      slice's values, a fixed tree in each, the last block of a slice sums
+//      the chunks), so k depends on the values and the keep bits alone;
+//      where every item is kept, S has the bits of the sum over every
+//      value;
 //   2. the splat kernels round each tap t (float32, the product of the
 //      value scaled by 2^k and the unfolded factors, in the column form
 //      below) to q = rint(t), an int64 (scaling a float32 by a power of
@@ -30,9 +41,13 @@
 // Precision: a voxel's sum is exact up to half a quantum (2^-k <= 2 S
 // 2^-62) per tap that reaches it, besides the float32 rounding of each tap
 // and of the result: an absolute error per slice, where a float sum's is
-// relative per voxel.  A non-finite value in slice (b, c) (S not finite), or
-// a non-finite coordinate of a kept item of batch b, makes the whole output
-// slice NaN.
+// relative per voxel.  A non-finite value of a kept item of slice (b, c)
+// (S not finite), or a non-finite coordinate of a kept point of batch b
+// (scattered; a dense site with one fails the window test), makes the whole
+// output slice NaN; a dropped item's value never does.
+//
+// Launch geometry: slices, channels and batches run on grid-stride loops
+// over gridDim.y (at most 65535), so no count of them is refused.
 //
 // Tap masses (sum over an axis's taps of |factor|): the weights are
 // non-negative and sum to 1 at every order; a first derivative is a
@@ -79,13 +94,17 @@ template <int SPEC> struct Spec {
 
 // Workspace of one splat, zeroed by the wrapper: acc (S * V int64), then
 // the scale partials (S * kChunks float64), then per slice the finished
-// chunk count, the non-finite flag and k (3 x S uint32).
+// chunk count, the non-finite flag and k (3 x S uint32), then, where they
+// do not fit the output (S x V float32, which keeps them until
+// convert_kernel overwrites it), the keep bits of the items (B x words
+// uint32, written whole by keep_kernel).
 struct Workspace {
   unsigned long long* acc;
   double* partial;
   unsigned* done;
   unsigned* bad;
   int* kexp;
+  unsigned* keep;  // the tail
 };
 
 __host__ __device__ inline Workspace workspace(void* base, long long S,
@@ -96,6 +115,7 @@ __host__ __device__ inline Workspace workspace(void* base, long long S,
   w.done = reinterpret_cast<unsigned*>(w.partial + S * kChunks);
   w.bad = w.done + S;
   w.kexp = reinterpret_cast<int*>(w.bad + S);
+  w.keep = reinterpret_cast<unsigned*>(w.kexp + S);
   return w;
 }
 
@@ -114,43 +134,178 @@ __device__ __forceinline__ int scale_exp(double S) {
   return min(62 - (m == 0.5 ? e - 1 : e), 127);
 }
 
-// Slice s = blockIdx.y of vals (S, n): chunk blockIdx.x's sum of |v| in
-// float64, a fixed tree; the slice's last block sums the chunks in order
-// and writes k and the non-finite flag.
+// The keep test of a scattered point at g (splat.cu and the scale pass):
+// the extrapolation mask.
+__device__ __forceinline__ bool point_kept(const PointParams& p,
+                                           const float* g) {
+  return !p.masked || inside(g[0], g[1], g[2], p.thr_lo, p.thr_hi);
+}
+
+// The keep test of a dense site at pos whose sample is g (push.cu and the
+// scale pass): the mask, then on each axis the window test of its node
+// origin's offset d0 = n0 - pos, shifted by ``sh`` (the base of the site's
+// TPU tile in adaptive mode, warp.cu's tile_shift; 0 otherwise).  Written
+// so that a NaN coordinate fails it.
+__device__ __forceinline__ bool site_kept(const WarpParams& p, const float* g,
+                                          const int* pos, const int* sh) {
+  if (p.masked && !inside(g[0], g[1], g[2], p.thr_lo, p.thr_hi))
+    return false;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float d0 = node_origin(g[d], p.order[d]) - (float)pos[d];
+    if (!(d0 >= (float)(p.d0min[d] + sh[d]) &&
+          d0 <= (float)(p.d0max[d] + sh[d])))
+      return false;
+  }
+  return true;
+}
+
+// The items of a scale pass, by (batch, item index in original order
+// within the batch, of the keep pass's index type I).  Dense push: the
+// sites of the lifted grid (B, X, Y, Z, 3).
+struct SiteItems {
+  const float* grid;
+  WarpParams p;
+  bool all_kept() const { return false; }
+  template <class I>
+  __device__ __forceinline__ bool kept(long long b, I r) const {
+    const I YZ = (I)p.shape[1] * p.shape[2];
+    const I x = r / YZ, ryz = r - x * YZ, y = ryz / p.shape[2];
+    const int pos[3] = {(int)x, (int)y, (int)(ryz - y * p.shape[2])};
+    const float* gp = grid + 3 * ((long long)b * p.shape[0] * YZ + r);
+    const float g[3] = {__ldg(gp), __ldg(gp + 1), __ldg(gp + 2)};
+    int sh[3];
+    tile_shift(p, b, pos[0], pos[1], pos[2], sh);
+    return site_kept(p, g, pos, sh);
+  }
+};
+
+// Scattered splat: the points of the cloud (B*P, 3) in input order.
+struct PointItems {
+  const float* coords;
+  PointParams p;
+  bool all_kept() const { return !p.masked; }
+  template <class I>
+  __device__ __forceinline__ bool kept(long long b, I k) const {
+    const float* gp = coords + 3 * ((long long)b * p.P + k);
+    const float g[3] = {__ldg(gp), __ldg(gp + 1), __ldg(gp + 2)};
+    return point_kept(p, g);
+  }
+};
+
+// The first pass of the scale (skipped where every item is kept; the
+// bits are then null): the keep test of every item once, at full
+// occupancy, as bits (B, words), 32 items a word (a warp's ballot).
+// Batches on a grid-stride loop over y (64-bit), a batch's items over x;
+// the loop runs over whole warps (32 divides words x 32), so every lane
+// takes part in each ballot.  I: the index of an item within its batch,
+// int unless a batch holds more than 2^31 - 2^21 items.
+template <class Items, class I>
 __global__ void __launch_bounds__(kThreads)
-    scale_kernel(const float* __restrict__ vals, long long n, float mass,
-                 Workspace w) {
+    keep_kernel(Items items, long long B, I n_items, I words,
+                unsigned* __restrict__ bits) {
+  for (long long b = blockIdx.y; b < B; b += gridDim.y) {
+    unsigned* row = bits + b * words;
+    for (I k = (I)blockIdx.x * kThreads + threadIdx.x; k < words * 32;
+         k += (I)gridDim.x * kThreads) {
+      // the test unconditional (k clamped), so that its loads overlap
+      const bool kept = items.kept(b, k < n_items ? k : n_items - 1);
+      const unsigned word = __ballot_sync(0xffffffffu, kept && k < n_items);
+      if ((k & 31) == 0) row[k >> 5] = word;
+    }
+  }
+}
+
+// Chunk [i0, i1) of a slice's values v: thread t's sum of |v| over the
+// kept items' values i0 + t, i0 + t + 256, ... in float64, in that order.
+// BITS: read the keep bits (keep, words of the slice's batch) of item j /
+// vpi (ONE: vpi is 1; else the item carried from step to step in 32 bits,
+// launch_scale refusing a batch of 2^32 items or more); a dropped item
+// adds 0.0, a no-op on the non-negative sum, so where every item is kept
+// the sum has the bits of one over every value.  The choices are template
+// arguments: a runtime branch in this loop, or 64-bit index steps, stop
+// its loads from overlapping (2-4x slower on the H100).
+template <bool BITS, bool ONE>
+__device__ __forceinline__ double chunk_sum(const float* __restrict__ v,
+                                            const unsigned* __restrict__ keep,
+                                            long long vpi, long long i0,
+                                            long long i1) {
+  double acc = 0.0;
+  const long long j0 = i0 + threadIdx.x;
+  const unsigned d = (unsigned)vpi, step = kThreads / d,
+                 sr = kThreads - step * d;
+  unsigned item = 0, rem = 0;
+  if constexpr (BITS && !ONE) {
+    item = (unsigned)(j0 / vpi);
+    rem = (unsigned)(j0 - (long long)item * vpi);
+  }
+  for (long long j = j0; j < i1; j += kThreads) {
+    const float x = __ldg(v + j);
+    bool in = true;
+    if constexpr (BITS) {
+      const long long it = ONE ? j : (long long)item;
+      in = (__ldg(keep + (it >> 5)) >> (it & 31)) & 1u;
+      if constexpr (!ONE) {
+        item += step;
+        rem += sr;
+        const bool wrap = rem >= d;
+        rem -= wrap ? d : 0;
+        item += wrap;
+      }
+    }
+    acc += in ? fabs((double)x) : 0.0;
+  }
+  return acc;
+}
+
+// vals (S, n), S = B x C slices on a grid-stride loop over y, the values
+// of an item next to each other (vpi values an item).  Block (chunk
+// blockIdx.x, slice s) sums its chunk (chunk_sum), then a fixed tree; the
+// slice's last block sums the chunks in order and writes k and the
+// non-finite flag.
+__global__ void __launch_bounds__(kThreads)
+    scale_kernel(const float* __restrict__ vals, long long S, long long C,
+                 long long n, long long vpi, const unsigned* __restrict__ bits,
+                 long long words, float mass, Workspace w) {
   __shared__ double part[kThreads / 32];
   __shared__ bool last;
-  const long long s = blockIdx.y;
   const long long per = (n + kChunks - 1) / kChunks;
   const long long i0 = blockIdx.x * per, i1 = min(n, i0 + per);
-  const float* v = vals + s * n;
-  double acc = 0.0;
-  for (long long i = i0 + threadIdx.x; i < i1; i += kThreads)
-    acc += fabs((double)__ldg(v + i));
-  acc = warp_sum(acc);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double t = 0.0;
+  for (long long s = blockIdx.y; s < S; s += gridDim.y) {
+    const float* v = vals + s * n;
+    const unsigned* keep = bits ? bits + (s / C) * words : nullptr;
+    double acc;
+    if (keep == nullptr)
+      acc = chunk_sum<false, true>(v, keep, vpi, i0, i1);
+    else if (vpi == 1)
+      acc = chunk_sum<true, true>(v, keep, vpi, i0, i1);
+    else
+      acc = chunk_sum<true, false>(v, keep, vpi, i0, i1);
+    acc = warp_sum(acc);
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      double t = 0.0;
 #pragma unroll
-    for (int j = 0; j < kThreads / 32; ++j) t += part[j];
-    w.partial[s * kChunks + blockIdx.x] = t;
-    __threadfence();
-    last = atomicAdd(w.done + s, 1u) == kChunks - 1;
-  }
-  __syncthreads();
-  if (!last || threadIdx.x >= 32) return;
-  __threadfence();
-  double t = 0.0;
-  for (int j = threadIdx.x; j < kChunks; j += 32)
-    t += __ldcg(w.partial + s * kChunks + j);
-  t = warp_sum(t) * (double)mass;
-  if (threadIdx.x == 0) {
-    const int k = scale_exp(t);
-    w.kexp[s] = max(k, -126);
-    if (!isfinite(t) || k < -126) w.bad[s] = 1u;
+      for (int j = 0; j < kThreads / 32; ++j) t += part[j];
+      w.partial[s * kChunks + blockIdx.x] = t;
+      __threadfence();
+      last = atomicAdd(w.done + s, 1u) == kChunks - 1;
+    }
+    __syncthreads();
+    if (last && threadIdx.x < 32) {
+      __threadfence();
+      double t = 0.0;
+      for (int j = threadIdx.x; j < kChunks; j += 32)
+        t += __ldcg(w.partial + s * kChunks + j);
+      t = warp_sum(t) * (double)mass;
+      if (threadIdx.x == 0) {
+        const int k = scale_exp(t);
+        w.kexp[s] = max(k, -126);
+        if (!isfinite(t) || k < -126) w.bad[s] = 1u;
+      }
+    }
+    __syncthreads();  // part and last are reused
   }
 }
 
@@ -170,32 +325,67 @@ __device__ __forceinline__ void scaled(float* vs, const float* v,
   for (int r = 0; r < Spec<SPEC>::NV; ++r) vs[r] = v[r] * scale;
 }
 
-// out (S, V) = acc * 2^-k per slice, NaN over a flagged slice.
+// out (S, V) = acc * 2^-k per slice, NaN over a flagged slice; slices on a
+// grid-stride loop over y.
 __global__ void __launch_bounds__(kThreads)
-    convert_kernel(Workspace w, float* __restrict__ out, long long V) {
-  const long long s = blockIdx.y;
-  const double inv = ldexp(1.0, -w.kexp[s]);
-  const bool nan = w.bad[s] != 0u;
-  const long long* acc = reinterpret_cast<const long long*>(w.acc) + s * V;
-  float* o = out + s * V;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < V;
-       i += (long long)gridDim.x * kThreads)
-    o[i] = nan ? __int_as_float(0x7fc00000) : (float)((double)acc[i] * inv);
+    convert_kernel(Workspace w, float* __restrict__ out, long long S,
+                   long long V) {
+  for (long long s = blockIdx.y; s < S; s += gridDim.y) {
+    const double inv = ldexp(1.0, -w.kexp[s]);
+    const bool nan = w.bad[s] != 0u;
+    const long long* acc = reinterpret_cast<const long long*>(w.acc) + s * V;
+    float* o = out + s * V;
+    for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < V;
+         i += (long long)gridDim.x * kThreads)
+      o[i] = nan ? __int_as_float(0x7fc00000) : (float)((double)acc[i] * inv);
+  }
 }
 
-cudaError_t launch_scale(const float* vals, long long S, long long n,
-                         float mass, const Workspace& w, cudaStream_t s) {
-  if (S < 1 || S > 65535 || n < 1) return cudaErrorInvalidConfiguration;
-  scale_kernel<<<dim3(kChunks, (unsigned)S), kThreads, 0, s>>>(vals, n, mass,
-                                                               w);
+// gridDim.y of a grid-stride loop over n rows.
+inline unsigned rows_y(long long n) {
+  return (unsigned)(n < 65535 ? n : 65535);
+}
+
+// The scale of B x C slices of n values each, vpi values an item: the keep
+// bits (in the output out, S x V float32, where they fit; none where every
+// item is kept, as in an unmasked cloud), then the sums.  Refuses a batch
+// of 2^32 items or more with several values an item (32 GiB of values and
+// 48 GiB of coordinates, more than the card holds).
+template <class Items>
+cudaError_t launch_scale(const float* vals, long long B, long long C,
+                         long long n, long long vpi, float mass,
+                         const Items& items, const Workspace& w, float* out,
+                         long long V, cudaStream_t s) {
+  if (B < 1 || C < 1 || n < 1 || vpi < 1 || n % vpi != 0 ||
+      (vpi > 1 && n / vpi > 0xffffffffLL))
+    return cudaErrorInvalidConfiguration;
+  const long long n_items = n / vpi, words = (n_items + 31) / 32;
+  unsigned* bits = nullptr;
+  if (!items.all_kept()) {
+    bits = B * words <= B * C * V ? reinterpret_cast<unsigned*>(out) : w.keep;
+    const dim3 blocks(
+        (unsigned)min((words * 32 + kThreads - 1) / kThreads, 8192LL),
+        rows_y(B));
+    // int where a batch's item index plus the stride fits it
+    if (words * 32 <= (1LL << 31) - 8192LL * kThreads)
+      keep_kernel<Items, int><<<blocks, kThreads, 0, s>>>(
+          items, B, (int)n_items, (int)words, bits);
+    else
+      keep_kernel<Items, long long><<<blocks, kThreads, 0, s>>>(
+          items, B, n_items, words, bits);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  scale_kernel<<<dim3(kChunks, rows_y(B * C)), kThreads, 0, s>>>(
+      vals, B * C, C, n, vpi, bits, words, mass, w);
   return cudaGetLastError();
 }
 
 cudaError_t launch_convert(const Workspace& w, float* out, long long S,
                            long long V, cudaStream_t s) {
   const long long blocks = min((V + kThreads - 1) / kThreads, 2048LL);
-  convert_kernel<<<dim3((unsigned)blocks, (unsigned)S), kThreads, 0, s>>>(
-      w, out, V);
+  convert_kernel<<<dim3((unsigned)blocks, rows_y(S)), kThreads, 0, s>>>(
+      w, out, S, V);
   return cudaGetLastError();
 }
 
@@ -210,16 +400,14 @@ struct ItemTaps {
   float w[3][NT], d[3][NT], h[3][NT];
 };
 
-// Stage axis dim of an item at coordinate g: returns the node origin as
-// a float (the window test of the dense push reads it).
+// Stage axis dim of an item at coordinate g: its node origin and factors.
 template <int NT, int SPEC>
-__device__ __forceinline__ float stage_axis(ItemTaps<NT, SPEC>& it, int dim,
-                                            float g, int order) {
+__device__ __forceinline__ void stage_axis(ItemTaps<NT, SPEC>& it, int dim,
+                                           float g, int order) {
   const float n0f = node_origin(g, order);
   it.n0[dim] = node_index(n0f);
   axis_weights<NT, (SPEC >= 1), (SPEC == 2)>(g - n0f, order, it.w[dim],
                                               it.d[dim], it.h[dim]);
-  return n0f;
 }
 
 // The taps of one column (jy, jz) of an item, as up to three constants

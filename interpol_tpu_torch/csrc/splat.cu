@@ -17,15 +17,22 @@
 //     is unused (a reduction, RED, in L2).  No sort, no host work;
 //   - box (splat_box_kernel): the points sorted by box
 //     (ops/scattered.py::box_schedule, one torch.sort); one block of 256
-//     threads per (box, channel) adds its points' taps to a patch in shared
+//     threads per (box, channel) (the channels on a grid-stride loop over
+//     gridDim.y) adds its points' taps to a patch in shared
 //     memory (the box plus the spline's reach, splat_margins), then every
 //     non-zero cell once to the accumulator, folded; the outliers (points
 //     outside [0, n-1] on some axis that the mask keeps, the sort's last
 //     segment) go through the direct kernel, their range read on the card.
-// ops/cuda_scattered.py picks the design by points per output voxel
-// (PERF.md).  A template SPEC selects push (1 value row), pushgrad (3 rows,
-// first-derivative taps) and pushhess (6 rows: xx, yy, zz and the summed
-// symmetric pairs xy, xz, yz), as the JAX spec does (scattered.py:1359).
+// A point is kept by the extrapolation mask (fixed_splat.cuh::point_kept);
+// a masked one adds nothing, and the slice's scale sums |v| over the kept
+// points only, read in input order from the unsorted cloud, as the JAX
+// kernel gives invalid slots v = 0 (scattered.py:1033): a masked point
+// whose value is 1e30, inf or NaN changes no bit of the output, in either
+// design.  ops/cuda_scattered.py picks the design by points per output
+// voxel (PERF.md).  A template SPEC selects push (1 value row), pushgrad
+// (3 rows, first-derivative taps) and pushhess (6 rows: xx, yy, zz and the
+// summed symmetric pairs xy, xz, yz), as the JAX spec does
+// (scattered.py:1359).
 //
 // What bounds it on this card: the atomics, (order+1)^3 per point per
 // channel (the least traffic is the points, values and output once: 83 MB
@@ -33,16 +40,18 @@
 //
 // C interface (loaded with ctypes by ops/cuda_scattered.py):
 //   int interpol_splat(const float* coords, const float* rows,
-//                      const float* vals_orig, long long n_orig,
+//                      const float* coords_orig, const float* vals_orig,
+//                      long long n_orig,
 //                      const int* keys, const long long* seg, void* ws,
 //                      float* out, const PointParams* p,
 //                      const SplatGeom* g, int spec, void* stream);
 // coords (B*P, 3) and rows (C, NV, B*P): in input order (direct, keys and
 // seg null) or sorted by box (keys the sorted int32 box keys, seg the
-// (B*tiles + B + 2) segment starts, g the boxes); vals_orig the caller's
-// values, n_orig elements per slice (the scale); ws the zeroed workspace;
-// out (B, C, X, Y, Z); all contiguous.  Returns the first failing
-// cudaError_t.
+// (B*tiles + B + 2) segment starts, g the boxes); coords_orig (B*P, 3) and
+// vals_orig (B, C, P[, D[, D]]), n_orig elements per slice, the cloud and
+// the caller's values in input order (the scale pass); ws the zeroed
+// workspace; out (B, C, X, Y, Z); all contiguous.  Returns the first
+// failing cudaError_t.
 
 #include "fixed_splat.cuh"
 
@@ -110,7 +119,7 @@ __global__ void __launch_bounds__(kThreads)
       const long long b = keys != nullptr ? keys[k] - tiles : k / p.P;
       const float g[3] = {coords[3 * k], coords[3 * k + 1],
                           coords[3 * k + 2]};
-      if (!p.masked || inside(g[0], g[1], g[2], p.thr_lo, p.thr_hi)) {
+      if (point_kept(p, g)) {
         if (!(isfinite(g[0]) && isfinite(g[1]) && isfinite(g[2]))) {
           for (long long c = 0; c < p.C; ++c)
             atomicOr(w.bad + b * p.C + c, 1u);
@@ -172,8 +181,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block per (box b * tiles + t, channel): the box's points into its
-// patch, then the flush.
+// One block per (box b * tiles + t, channel), the channels on a
+// grid-stride loop over gridDim.y: the box's points into its patch, then
+// the flush.
 template <int NT, int SPEC>
 __global__ void __launch_bounds__(kThreads)
     splat_box_kernel(const float* __restrict__ coords,
@@ -186,7 +196,6 @@ __global__ void __launch_bounds__(kThreads)
   const long long ntile = (long long)g.NB[0] * g.NB[1] * g.NB[2];
   const long long bt = blockIdx.x;
   const long long b = bt / ntile, tile = bt - b * ntile;
-  const long long c = blockIdx.y;
   const long long k0 = seg[bt], k1 = seg[bt + 1];
   if (k0 == k1) return;
   const int tix[3] = {(int)(tile / ((long long)g.NB[1] * g.NB[2])),
@@ -195,25 +204,28 @@ __global__ void __launch_bounds__(kThreads)
   int origin[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) origin[d] = tix[d] * g.T[d] + g.lo[d];
-  const long long slice = b * p.C + c;
-  const float scale = pow2f(w.kexp[slice]);
-  const PatchSmem ps = patch_begin(smem, g.E, origin, p.shape, p.bound);
-  for (long long k = k0 + threadIdx.x; k < k1; k += kThreads) {
-    ItemTaps<NT, SPEC> it;
-    bool in = true;
+  for (long long c = blockIdx.y; c < p.C; c += gridDim.y) {
+    const long long slice = b * p.C + c;
+    const float scale = pow2f(w.kexp[slice]);
+    const PatchSmem ps = patch_begin(smem, g.E, origin, p.shape, p.bound);
+    for (long long k = k0 + threadIdx.x; k < k1; k += kThreads) {
+      ItemTaps<NT, SPEC> it;
+      bool in = true;
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      stage_axis(it, d, coords[3 * k + d], p.order[d]);
-      // every tap inside the patch (the host's margins guarantee it)
-      const int l = it.n0[d] - origin[d];
-      in = in && l >= 0 && l + p.order[d] < g.E[d];
+      for (int d = 0; d < 3; ++d) {
+        stage_axis(it, d, coords[3 * k + d], p.order[d]);
+        // every tap inside the patch (the host's margins guarantee it)
+        const int l = it.n0[d] - origin[d];
+        in = in && l >= 0 && l + p.order[d] < g.E[d];
+      }
+      if (!in) continue;
+      float v[Spec<SPEC>::NV];
+      load_rows<SPEC>(v, rows, c, ntot, k);
+      patch_add(ps, it, v, p.order, origin, g.E[1], g.E[2], scale);
     }
-    if (!in) continue;
-    float v[Spec<SPEC>::NV];
-    load_rows<SPEC>(v, rows, c, ntot, k);
-    patch_add(ps, it, v, p.order, origin, g.E[1], g.E[2], scale);
+    patch_flush(ps, g.E, w.acc + slice * nvox, p.shape[1], p.shape[2]);
+    __syncthreads();  // the next channel zeroes the patch
   }
-  patch_flush(ps, g.E, w.acc + slice * nvox, p.shape[1], p.shape[2]);
 }
 
 int max_nt(const PointParams* p) {
@@ -229,7 +241,8 @@ int max_nt(const PointParams* p) {
 
 template <int NT, int SPEC>
 cudaError_t launch_splat(const float* coords, const float* rows,
-                         const float* vals_orig, long long n_orig,
+                         const float* coords_orig, const float* vals_orig,
+                         long long n_orig,
                          const int* keys, const long long* seg,
                          const Workspace& w, float* out,
                          const PointParams& p, const SplatGeom& g,
@@ -237,7 +250,11 @@ cudaError_t launch_splat(const float* coords, const float* rows,
   const long long S = p.B * p.C;
   const long long nvox = (long long)p.shape[0] * p.shape[1] * p.shape[2];
   const long long ntot = p.B * p.P;
-  cudaError_t e = launch_scale(vals_orig, S, n_orig, Spec<SPEC>::kMass, w, s);
+  // the scale over the kept points, in input order: n_orig / P values a
+  // point (1, D or D^2 of the caller's layout)
+  cudaError_t e = launch_scale(vals_orig, p.B, p.C, n_orig, n_orig / p.P,
+                               Spec<SPEC>::kMass,
+                               PointItems{coords_orig, p}, w, out, nvox, s);
   if (e != cudaSuccess) return e;
   const long long blocks = (ntot + kThreads - 1) / kThreads;
   const long long tiles = p.B * (long long)g.NB[0] * g.NB[1] * g.NB[2];
@@ -250,13 +267,13 @@ cudaError_t launch_splat(const float* coords, const float* rows,
         <<<(unsigned)blocks, kThreads, direct_smem, s>>>(coords, rows, w, p,
                                                          nullptr, nullptr, 0);
   } else {
-    if (tiles < 1 || tiles > 0x7fffffffLL || p.C > 65535)
+    if (tiles < 1 || tiles > 0x7fffffffLL)
       return cudaErrorInvalidConfiguration;
     const size_t smem = patch_bytes(g.E);
     e = allow_smem(splat_box_kernel<NT, SPEC>, smem);
     if (e != cudaSuccess) return e;
     splat_box_kernel<NT, SPEC>
-        <<<dim3((unsigned)tiles, (unsigned)p.C), kThreads, smem, s>>>(
+        <<<dim3((unsigned)tiles, rows_y(p.C)), kThreads, smem, s>>>(
             coords, rows, seg, w, p, g);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
@@ -272,13 +289,15 @@ cudaError_t launch_splat(const float* coords, const float* rows,
 }  // namespace
 
 extern "C" int interpol_splat(const float* coords, const float* rows,
+                              const float* coords_orig,
                               const float* vals_orig, long long n_orig,
                               const int* keys, const long long* seg,
                               void* ws, float* out, const PointParams* p,
                               const SplatGeom* g, int spec, void* stream) {
   const int nt = max_nt(p);
   if (nt == 0 || spec < 0 || spec > 2 || coords == nullptr ||
-      rows == nullptr || vals_orig == nullptr || n_orig < 1 ||
+      rows == nullptr || coords_orig == nullptr || vals_orig == nullptr ||
+      n_orig < 1 || p->P < 1 ||
       ws == nullptr || out == nullptr || (seg == nullptr) != (keys == nullptr))
     return (int)cudaErrorInvalidValue;
   const Workspace w = workspace(
@@ -287,8 +306,8 @@ extern "C" int interpol_splat(const float* coords, const float* rows,
   cudaError_t err;
 #define INTERPOL_SPLAT_CASE(N, S)                                           \
   case N * 3 + S:                                                           \
-    err = launch_splat<N, S>(coords, rows, vals_orig, n_orig, keys, seg, w, \
-                             out, *p, *g, s);                               \
+    err = launch_splat<N, S>(coords, rows, coords_orig, vals_orig, n_orig,  \
+                             keys, seg, w, out, *p, *g, s);                 \
     break;
 #define INTERPOL_SPLAT_NT(N) \
   INTERPOL_SPLAT_CASE(N, 0) INTERPOL_SPLAT_CASE(N, 1) INTERPOL_SPLAT_CASE(N, 2)

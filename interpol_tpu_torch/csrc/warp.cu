@@ -45,7 +45,9 @@
 //   - channels loop inside the thread with the weights in registers; batch
 //     and channel are written out (one launch per call) with 64-bit
 //     (b, c) base offsets; each thread writes only its own voxel, so the
-//     result is deterministic;
+//     result is deterministic; the blocks of every (y, z) tile, x tile
+//     and batch lie on one grid axis (up to 2^31 - 1 blocks), so no count
+//     of x tiles or batches past 65535 is refused;
 //   - hess mode reads the taps once and keeps six sums (xx, yy, zz from
 //     the second-derivative weights; xy, xz, yz from products of first
 //     derivatives), and writes the full symmetric 3x3 (JAX's layout).
@@ -81,15 +83,18 @@ __global__ void __launch_bounds__(256, (gather_blocks<NT, HESS>(true)))
                 float* __restrict__ hes, const WarpParams p) {
   constexpr bool D1 = GRAD || HESS;  // first-derivative taps needed
   const int X = p.shape[0], Y = p.shape[1], Z = p.shape[2];
-  // the block's tile: blockIdx.x runs over (y, z) tiles, z fastest,
-  // blockIdx.y over x tiles, blockIdx.z over the batch; threadIdx.x runs
-  // over the tile, z fastest
+  // the block's tile: blockIdx.x runs over the (y, z) tiles, z fastest,
+  // then the x tiles, then the batch; threadIdx.x runs over the tile, z
+  // fastest
   const int lx = p.block[0], ly = p.block[1], lz = p.block[2];
-  const int nbz = (Z + (1 << lz) - 1) >> lz;
-  const int ky = blockIdx.x / nbz;
-  const int x0 = blockIdx.y << lx, y0 = ky << ly,
-            z0 = (blockIdx.x - ky * nbz) << lz;
-  const long long b = blockIdx.z;
+  const unsigned nbx = (X + (1 << lx) - 1) >> lx;
+  const unsigned nbz = (Z + (1 << lz) - 1) >> lz;
+  const unsigned nyz = ((Y + (1 << ly) - 1) >> ly) * nbz;
+  const unsigned kbx = blockIdx.x / nyz, kyz = blockIdx.x - kbx * nyz;
+  const unsigned kb = kbx / nbx, kx = kbx - kb * nbx, ky = kyz / nbz;
+  const long long b = kb;
+  const int x0 = (int)kx << lx, y0 = (int)ky << ly,
+            z0 = (int)(kyz - ky * nbz) << lz;
   // the window test's shift: the base of the block's TPU tile (adaptive
   // mode), 0 in the plain mode
   int sh[3] = {0, 0, 0};
@@ -163,14 +168,12 @@ cudaError_t launch(const float* inp, const float* grid, float* val,
     nb[d] = (p.shape[d] + (1LL << p.block[d]) - 1) >> p.block[d];
   }
   const int threads = 1 << (p.block[0] + p.block[1] + p.block[2]);
-  if (threads > 256 || nb[1] * nb[2] > 0x7fffffffLL || nb[0] > 65535 ||
-      p.B < 1 || p.B > 65535 ||
+  const long long blocks = nb[0] * nb[1] * nb[2] * p.B;
+  if (threads > 256 || p.B < 1 || blocks > 0x7fffffffLL ||
       (long long)p.shape[1] * p.shape[2] > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
-  const dim3 blocks((unsigned)(nb[1] * nb[2]), (unsigned)nb[0],
-                    (unsigned)p.B);
-  warp_kernel<NT, VAL, GRAD, HESS>
-      <<<blocks, threads, 0, stream>>>(inp, grid, val, grd, hes, p);
+  warp_kernel<NT, VAL, GRAD, HESS><<<(unsigned)blocks, threads, 0, stream>>>(
+      inp, grid, val, grd, hes, p);
   return cudaGetLastError();
 }
 

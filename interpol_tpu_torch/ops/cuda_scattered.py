@@ -71,7 +71,7 @@ def _entry(name: str):
         fn = getattr(lib, f"interpol_{name}")
         fn.argtypes = {
             "gather": [vp, vp, vp, vp, vp, pp, i, i, i, vp],
-            "splat": [vp, vp, vp, ll, vp, vp, vp, vp, pp,
+            "splat": [vp, vp, vp, vp, ll, vp, vp, vp, vp, pp,
                       ctypes.POINTER(SplatGeom), i, vp],
         }[name]
         fn.restype = ctypes.c_int
@@ -219,8 +219,14 @@ def splat_cuda(vals: torch.Tensor, grid: torch.Tensor,
     (B, C, P, D, D) (both triangles count); grid (B, P, D), D in 1..3 ->
     (B, C, *oshape).  Same semantics as ``ndkernels.push_core`` /
     ``pushgrad_core`` / ``pushhess_core`` up to the fixed point's rounding
-    (``csrc/fixed_splat.cuh``); two runs give the same bits.  Takes an
-    int64 accumulator, twice the output; no host sync.  ``box``: the
+    (``csrc/fixed_splat.cuh``); two runs give the same bits.  The scale of
+    a slice (b, c) sums |v| over the points the mask keeps, so a masked
+    point adds nothing whatever its value (1e30, inf or NaN); a
+    non-finite value of a kept point, or a non-finite coordinate of a
+    kept point of batch b, makes the whole slice NaN.  Takes an int64
+    accumulator, twice the output (and a bit per point for a cloud of
+    more than 32 points per output voxel and channel); no host sync; any
+    B and C.  ``box``: the
     design, chosen by the taps per point and the cloud's density by
     default: ``False`` direct (every tap straight to the accumulator),
     ``True`` or a core per axis of the lifted volume the box design (the
@@ -248,7 +254,7 @@ def splat_cuda(vals: torch.Tensor, grid: torch.Tensor,
     grid3, shape3, orders3, bounds3 = lift3(grid, oshape, orders, bounds)
     kspec, _ = SPECS[spec]
     p = _params(B, C, P, shape3, orders3, bounds3, extrapolate)
-    coords = grid3.reshape(-1, 3)
+    coords = orig = grid3.reshape(-1, 3)
     rows = _rows(vals, spec, D)
     g = SplatGeom()
     keys = seg = None
@@ -266,9 +272,10 @@ def splat_cuda(vals: torch.Tensor, grid: torch.Tensor,
             g.T[d], g.lo[d], g.E[d], g.NB[d] = box[d], lo, box[d] + hi - lo, \
                 nb[d]
     rows = rows.contiguous()
-    ws = workspace(B * C, math.prod(shape3), vals.device)
-    _call("splat", vals, coords.data_ptr(), rows.data_ptr(), vals.data_ptr(),
-          vals.numel() // (B * C), None if keys is None else keys.data_ptr(),
+    ws = workspace(B * C, math.prod(shape3), B, P, vals.device)
+    _call("splat", vals, coords.data_ptr(), rows.data_ptr(), orig.data_ptr(),
+          vals.data_ptr(), vals.numel() // (B * C),
+          None if keys is None else keys.data_ptr(),
           None if seg is None else seg.data_ptr(), ws.data_ptr(),
           out.data_ptr(), ctypes.byref(p), ctypes.byref(g), kspec)
     LAUNCHES_BY_MODE[f"sc_{spec}"] += 1

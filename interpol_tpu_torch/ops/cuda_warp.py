@@ -367,13 +367,17 @@ def push_cuda(inp: torch.Tensor, grid: torch.Tensor,
     D) -> volume (B, C, *ishape).  ``deriv`` (pushgrad, the adjoint of
     the gradient): inp (B, C, *ishape, D) -> (B, C, *ishape).  Same
     semantics as ``window._push_impl_torch`` / ``_pushgrad_impl_torch``
-    up to the fixed point's rounding; two runs give the same bits.  Takes
-    an int64 accumulator, twice the output.  ``spread``: the adaptive mode
-    (2c); a site tile then lies inside one TPU tile and its patch spans
-    the residual window of that tile's base.  ``tile``: the site tile of
-    the lifted volume (:func:`push_tile`'s by default; ``(0, 0, 0)``: no
-    patch, every tap straight to the accumulator); the bits do not depend
-    on it.
+    up to the fixed point's rounding; two runs give the same bits.  The
+    scale of a slice (b, c) sums |v| over the sites that the splat keeps
+    (the extrapolation mask and the window test), so a masked or dropped
+    site adds nothing whatever its value (1e30, inf or NaN); a non-finite
+    value of a kept site makes the whole slice NaN.  Takes an int64
+    accumulator, twice the output; any B and C.
+    ``spread``: the adaptive mode (2c); a site tile then lies inside one
+    TPU tile and its patch spans the residual window of that tile's base.
+    ``tile``: the site tile of the lifted volume (:func:`push_tile`'s by
+    default; ``(0, 0, 0)``: no patch, every tap straight to the
+    accumulator); the bits do not depend on it.
     """
     name = "push_cuda"
     setup = _launch_setup(name, inp, grid, orders, bounds, extrapolate,
@@ -408,7 +412,8 @@ def push_cuda(inp: torch.Tensor, grid: torch.Tensor,
         g.T[d], g.lo[d] = T[d], lo[d]
         g.E[d] = 0 if E is None else E[d]
         g.NB[d] = -(-shape3[d] // T[d])
-    ws = workspace(B * C, math.prod(shape3), inp.device)
+    ws = workspace(B * C, math.prod(shape3), B, math.prod(shape3),
+                   inp.device)
     _call("push", inp3, inp3.data_ptr(), inp.data_ptr(),
           inp.numel() // (B * C), grid3.data_ptr(), ws.data_ptr(),
           out.data_ptr(), ctypes.byref(p), ctypes.byref(g), int(deriv))

@@ -2,7 +2,8 @@
 """Time P3, one ``svf_train_step`` of the port at 256^3, on one NVIDIA GPU.
 
     python3 p3_time.py [--root CHECKOUT] [--tag NAME]
-                       [--splats | --gathers | --designs] [--rows TEXT]
+                       [--splats | --gathers | --designs | --trace]
+                       [--rows TEXT]
 
 The configuration is ``chip_smoke.py``'s P3: ``SVFModel(256^3, coarse
 8^3, cubic, dct2, max_disp=4, steps=6)``, parameters 0.5 N(0,1) (numpy
@@ -22,12 +23,15 @@ window, ``tile_spread`` as ``required_tile_spread`` gives it), ``grid_push``
 of 1M points in 256^3 (order 1 and cubic) and of P7's 16.7M-point
 reslice (cubic), and the scattered pushgrad and pushhess of the 1M points
 (cubic), each with the device memory it allocates at its peak (output
-included).  ``--designs`` times this tree's splat designs on the same rows
+included) and a digest of its output (equal digests: equal bits).  ``--designs`` times this tree's splat designs on the same rows
 through the wrappers' private keywords (the bits do not depend on them):
 the dense push under several site tiles and with no patch, at
 ``max_disp=4`` and 8, the scattered splat (push at orders 1, 2 and 3,
 pushgrad and pushhess at cubic order) direct and by box patches.
-``--rows TEXT`` runs only the splat or design rows whose name holds TEXT.
+``--rows TEXT`` runs only the splat, design or gather rows whose name
+holds TEXT, or one of several texts separated by ``|``.  ``--trace`` runs the splat rows under ``torch.profiler`` and
+prints each kernel's device time a call (the splat's keep pass, scale,
+splat and convert kernels).
 ``--gathers``
 times the gathers the same way: the dense warp at 256^3 (value and
 ``grid_grad`` at cubic order and at order 1 zero-bound, C=1; linear value
@@ -57,6 +61,7 @@ def main() -> None:
     mode.add_argument("--splats", action="store_true")
     mode.add_argument("--gathers", action="store_true")
     mode.add_argument("--designs", action="store_true")
+    mode.add_argument("--trace", action="store_true")
     ap.add_argument("--rows", default="")
     args = ap.parse_args()
     if args.root:
@@ -74,11 +79,12 @@ def main() -> None:
     if args.gathers:
         for name in ("warp", "gather"):
             _build.load_library(name)
-        time_gathers(vol, coarse, args.tag, card)
+        time_gathers(vol, coarse, args.tag, card, args.rows)
         return
     _build.build_all()
-    if args.splats or args.designs:
-        time_splats(vol, coarse, args.tag, card, args.designs, args.rows)
+    if args.splats or args.designs or args.trace:
+        time_splats(vol, coarse, args.tag, card, args.designs, args.rows,
+                    args.trace)
         return
     rng = np.random.default_rng(0)
     moving = torch.tensor(rng.standard_normal((1, 1) + vol),
@@ -130,6 +136,39 @@ def cuda_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def trace_kernels(label, fn, card, calls=10):
+    """The device time per call of each kernel that ``fn`` launches,
+    heaviest first (``torch.profiler`` over ``calls`` calls after three
+    warm-up calls)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    for e in sorted(prof.key_averages(), key=lambda e: -e.device_time_total):
+        if e.device_time_total > 0:
+            print(f"trace {label}: {e.key[:70]} "
+                  f"{e.device_time_total / calls:.1f} us a call "
+                  f"({e.count // calls} launches) [{card}]", flush=True)
+
+
+def wanted(name, only):
+    """Whether row ``name`` holds one of the ``|``-separated texts."""
+    return any(t in name for t in only.split("|"))
+
+
+def digest(out):
+    """The first 16 hex digits of the sha256 of a tensor's bytes: equal
+    digests of two checkouts' outputs are equal bits."""
+    import hashlib
+    return hashlib.sha256(out.detach().cpu().numpy().tobytes()).hexdigest(
+    )[:16]
+
+
 def peak_mib(fn):
     """Device memory in MiB that ``fn`` allocates at its peak beyond the
     live tensors (its output included)."""
@@ -142,7 +181,8 @@ def peak_mib(fn):
     return (torch.cuda.max_memory_allocated() - live) / 2**20
 
 
-def time_splats(vol, coarse, tag, card, designs=False, only=""):
+def time_splats(vol, coarse, tag, card, designs=False, only="",
+                trace=False):
     import math
     import numpy as np
     import torch
@@ -236,11 +276,15 @@ def time_splats(vol, coarse, tag, card, designs=False, only=""):
             ("P7 reslice sc_push 16.7M points cubic", lambda: grid_push(
                 v7, reslice, shape=vol, interpolation=3, bound="dct2"))]
         for name, fn in rows:
-            if only not in name:
+            if not wanted(name, only):
+                continue
+            if trace:
+                trace_kernels(f"splat {name} 256^3 [{tag}]", fn, card)
                 continue
             ms = cuda_ms(fn)
             print(f"splat {name} 256^3 [{tag}]: {ms:.3f} ms (median of 20), "
-                  f"peak +{peak_mib(fn):.0f} MiB [{card}]", flush=True)
+                  f"peak +{peak_mib(fn):.0f} MiB, output sha256 "
+                  f"{digest(fn())} [{card}]", flush=True)
 
 
 def time_designs(v1, v3, flow, vals, cloud, v7, reslice, tag, card, flow8,
@@ -300,14 +344,14 @@ def time_designs(v1, v3, flow, vals, cloud, v7, reslice, tag, card, flow8,
                              box=b)))
     with torch.no_grad():
         for name, fn in rows:
-            if only not in name:
+            if not wanted(name, only):
                 continue
             ms = cuda_ms(fn)
             print(f"design {name} 256^3 [{tag}]: {ms:.3f} ms (median of "
                   f"20), peak +{peak_mib(fn):.0f} MiB [{card}]", flush=True)
 
 
-def time_gathers(vol, coarse, tag, card):
+def time_gathers(vol, coarse, tag, card, only=""):
     import math
     import numpy as np
     import torch
@@ -399,6 +443,8 @@ def time_gathers(vol, coarse, tag, card):
                 (f"kernel hess order {order}",
                  lambda o=opts: cuda_warp.hess_cuda(v1, flow, *o))]
         for name, fn in rows:
+            if not wanted(name, only):
+                continue
             print(f"gather {name} 256^3 [{tag}]: {cuda_ms(fn):.3f} ms "
                   f"(median of 20) [{card}]", flush=True)
 

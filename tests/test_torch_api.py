@@ -100,3 +100,14 @@ def test_not_ported_yet_raises():
         itt.grid_grad(img, grid + 3.0, max_disp=1.0, check_spread=True)
     with pytest.raises(ValueError, match="tile_spread"):
         itt.grid_pull(img, grid, tile_spread=1.0)
+
+
+def test_top_level_names_match_jax():
+    """The port's top level has every public name of the JAX package's,
+    and its version, but ``backend``: the port has no backend switch (the
+    tensors' device decides)."""
+    names = [n for n in dir(itp) if not n.startswith("_")
+             or n == "__version__"]
+    assert "__version__" in names and "backend" in names
+    assert [n for n in names if not hasattr(itt, n)] == ["backend"]
+    assert itt.__version__ == itp.__version__

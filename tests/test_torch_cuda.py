@@ -4,8 +4,10 @@ dense warp's pull value / grad / hess (``csrc/warp.cu``), push and pushgrad
 scattered gather (``csrc/gather.cu``) and splat (``csrc/splat.cu``), the
 deterministic plain cores, the autograd Functions (second order included),
 the train steps and the pyramid on them, and the prefilter (against the
-CPU in float64, with TF32 on) and the label paths on the kernels, and the
-scattered tier's public functions (``ops/scattered.py``).
+CPU in float64, with TF32 on) and the label paths on the kernels, the
+scattered tier's public functions (``ops/scattered.py``), and the splats'
+scale over the kept items (1e30, inf or NaN at a dropped item changes no
+bit) and launches past 65535 slices, channels or batches.
 
 Every test here is marked ``cuda`` and skips where there is no NVIDIA GPU
 (the kernels have no CPU mode).  The file imports no JAX, so it also runs on
@@ -541,6 +543,198 @@ def test_splat_non_finite_values_and_coordinates(cuda_device):
     out = cuda_warp.push_cuda(inp, dense, *opts, 1.0)
     assert torch.isfinite(out).all()
     assert_close(out, tw._push_impl_torch(inp, dense, *opts, 1.0))
+
+
+# the values an item the splat drops may carry: none of them may reach the
+# slice's scale (csrc/fixed_splat.cuh), so none changes a bit of the output
+DROPPED = [1e30, math.inf, math.nan]
+
+
+def _dense_kept(grid, orders, ex, md, sp):
+    """(B, *ishape) bool: the sites that kernel 2 keeps (site_kept): the
+    extrapolation mask and the window test of the node origin's offset
+    from the site, in adaptive mode shifted by the site's push-tile base
+    (the plain versions' own mask, ``window._mask``)."""
+    D = grid.shape[-1]
+    ishape = tuple(grid.shape[1:-1])
+    m = tw._mask(grid, ishape, ex, torch.float32, orders, md, sp, push=True)
+    keep = torch.ones(grid.shape[:-1], dtype=torch.bool, device=grid.device)
+    if m is not None:
+        keep &= m > 0
+    if sp is None:
+        for d, mdd in enumerate(tw._md_tuple(md, D)):
+            n0 = torch.floor(grid[..., d] - 0.5 * (orders[d] - 1)) \
+                if orders[d] else torch.round(grid[..., d])
+            shape = [1] * (D + 1)
+            shape[1 + d] = ishape[d]
+            r = n0 - torch.arange(ishape[d], device=grid.device
+                                  ).reshape(shape)
+            smin, smax = tw.window_range(orders[d], mdd)
+            keep &= (r >= smin) & (r <= smax - orders[d])
+    return keep
+
+
+# dense pushes with dropped sites: spec, orders, bounds, extrapolate,
+# ishape, max_disp, tile_spread (adaptive) -- a fifth of the displacements
+# x4 (window-dropped) and extrapolate 0 (masked sites at the edges)
+DENSE_DROPS = [
+    ("push", (3, 3, 3), (3, 3, 3), 0, (19, 21, 37), 1.5, None),
+    ("pushgrad", (3, 3, 3), (6, 0, 4), 0, (19, 21, 37), 1.5, None),
+    ("push", (1, 1, 1), (3, 3, 3), 1, (17, 18, 19), 1.0, None),
+    ("push", (3, 3, 3), (3, 3, 3), 0, (20, 17, 40), 2.0, 0.5),
+    ("pushgrad", (3, 3, 3), (3, 3, 3), 1, (20, 17, 40), 2.0, 0.5),
+    ("pushgrad", (1, 3), (6, 3), 0, (33, 18), 1.5, None),
+]
+
+
+@pytest.mark.parametrize("bad", DROPPED)
+@pytest.mark.parametrize("spec,orders,bounds,ex,ish,md,sp", DENSE_DROPS)
+def test_dense_dropped_sites_set_no_scale(cuda_device, spec, orders, bounds,
+                                          ex, ish, md, sp, bad):
+    """Kernel 2 (2a, 2b, 2c) with 1e30, inf or NaN at every site it drops
+    (masked, or outside the window): within the gate of the plain version
+    with those values zeroed, and equal bit for bit to its own call with
+    them zeroed, with its default site tile and with no patch."""
+    inp, grid = warp_case(cuda_device, ish, C=3, disp=md, B=2, seed=3,
+                          break_contract=4.0)
+    if sp is not None:
+        grid[0, :8] += 1.0          # tiles with different bases
+    D = len(ish)
+    keep = _dense_kept(grid, orders, ex, md, sp)
+    assert 0 < int((~keep).sum()) < keep.numel()
+    vals = inp if spec == "push" else torch.randn(
+        inp.shape + (D,), device=cuda_device,
+        generator=torch.Generator(cuda_device).manual_seed(4))
+    k = keep[:, None].reshape(keep.shape[:1] + (1,) + keep.shape[1:]
+                              + (1,) * (vals.ndim - keep.ndim - 1))
+    zero = torch.where(k, vals, 0.0)
+    dirty = torch.where(k, vals, bad)
+    opts = (orders, bounds, ex, md, sp)
+    kw = dict(deriv=spec == "pushgrad")
+    plain = tw._push_impl_torch if spec == "push" else \
+        tw._pushgrad_impl_torch
+    clean = cuda_warp.push_cuda(zero, grid, *opts, **kw)
+    assert_close(clean, plain(zero, grid, *opts))
+    for tile in (None, (0, 0, 0)):
+        out = cuda_warp.push_cuda(dirty, grid, *opts, tile=tile, **kw)
+        assert torch.equal(out, clean)
+
+
+# the last: more than 32 points per output voxel and channel, so the keep
+# bits take the workspace's tail, not the output
+SC_DROP_CASES = [((3, 3, 3), (3, 3, 3), 0, (19, 21, 37), 3000),
+                 ((1, 2), (6, 4), 2, (33, 18), 700),
+                 ((1, 1), (3, 3), 0, (4, 3), 3000)]
+
+
+@pytest.mark.parametrize("bad", DROPPED)
+@pytest.mark.parametrize("spec", ["push", "pushgrad", "pushhess"])
+@pytest.mark.parametrize("orders,bounds,ex,ish,P", SC_DROP_CASES)
+def test_scattered_masked_points_set_no_scale(cuda_device, orders, bounds,
+                                              ex, ish, P, spec, bad):
+    """Kernel 4, both designs, with 1e30, inf or NaN at every point the
+    mask drops: within the gate of the plain core with those values
+    zeroed, and equal bit for bit to its own call with them zeroed."""
+    _, grid = sc_case(cuda_device, ish, P, B=2, C=3, seed=21)
+    D = len(ish)
+    keep = nd.inbounds_mask(grid, ish, ex, torch.float32) > 0
+    assert 0 < int((~keep).sum()) < keep.numel()
+    k = ("push", "pushgrad", "pushhess").index(spec)
+    vals = torch.randn((2, 3, P) + (D,) * k, device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(k))
+    m = keep[:, None].reshape((2, 1, P) + (1,) * k)
+    zero = torch.where(m, vals, 0.0)
+    dirty = torch.where(m, vals, bad)
+    opts = (orders, bounds, ex)
+    core = {"push": nd.push_core, "pushgrad": nd.pushgrad_core,
+            "pushhess": nd.pushhess_core}[spec]
+    clean = cuda_scattered.splat_cuda(zero, grid, ish, *opts, spec=spec)
+    assert_close(clean, core(zero, grid, ish, *opts))
+    for box in (False, True):
+        out = cuda_scattered.splat_cuda(dirty, grid, ish, *opts, spec=spec,
+                                        box=box)
+        assert torch.equal(out, clean)
+
+
+# more than 65535 slices (B x C), channels or batches: (B, C)
+MANY = [(1, 65536), (70000, 1), (2, 35000)]
+
+
+@pytest.mark.parametrize("B,C", MANY)
+@pytest.mark.parametrize("kind", ["push", "pushgrad", "sc_direct",
+                                  "sc_box"])
+def test_splats_take_any_slice_count(cuda_device, kind, B, C):
+    """Kernels 2 and 4 at B x C = 65536 and 70000 slices of a tiny volume
+    (the slices, and the channels of a block, on grid-stride loops):
+    within the gate of the plain versions, the same bits on a second run
+    and without a patch (dense) or in the other design (scattered)."""
+    gen = torch.Generator(cuda_device).manual_seed(B + C)
+    ish = (3, 4, 5)
+    opts = ((3, 1, 2), (3, 6, 0), 1)
+    if kind.startswith("sc"):
+        grid = torch.rand((B, 7, 3), device=cuda_device, generator=gen) \
+            * torch.tensor(ish, device=cuda_device) - 0.5
+        vals = torch.randn((B, C, 7), device=cuda_device, generator=gen)
+        box = kind == "sc_box"
+        out = cuda_scattered.splat_cuda(vals, grid, ish, *opts, box=box)
+        assert_close(out, nd.push_core(vals, grid, ish, *opts))
+        assert torch.equal(out, cuda_scattered.splat_cuda(
+            vals, grid, ish, *opts, box=not box))
+        return
+    grid = torch.stack(torch.meshgrid(
+        *[torch.arange(n, device=cuda_device, dtype=torch.float32)
+          for n in ish], indexing="ij"), -1)[None].expand(B, *ish, 3) \
+        + torch.rand((B,) + ish + (3,), device=cuda_device, generator=gen) \
+        - 0.5
+    deriv = kind == "pushgrad"
+    vals = torch.randn((B, C) + ish + ((3,) if deriv else ()),
+                       device=cuda_device, generator=gen)
+    plain = tw._pushgrad_impl_torch if deriv else tw._push_impl_torch
+    out = cuda_warp.push_cuda(vals, grid, *opts, 0.5, deriv=deriv)
+    assert_close(out, plain(vals, grid, *opts, 0.5))
+    for tile in (None, (0, 0, 0)):
+        assert torch.equal(out, cuda_warp.push_cuda(
+            vals, grid, *opts, 0.5, deriv=deriv, tile=tile))
+
+
+def test_keep_pass_past_2_31_points_a_batch(cuda_device):
+    """A batch of 2^31 + 64 points, all but five masked (at 1e30): the keep
+    pass indexes the items of a batch in 64 bits there.  Five kept points,
+    two of them past 2^31, give the bits of the splat of those five alone
+    (their float64 sum is exact, so S and k are the same), which the plain
+    core holds to the gate.  ~35 GB of device memory."""
+    P = 2**31 + 64
+    ish = (8, 8, 8)
+    opts = ((1, 1, 1), (3, 3, 3), 0)
+    idx = torch.tensor([0, 12345, 2**31 - 1, 2**31, P - 1],
+                       device=cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    g5 = torch.rand((1, 5, 3), device=cuda_device, generator=gen) * 7
+    v5 = 0.5 + 1.5 * torch.rand((1, 1, 5), device=cuda_device, generator=gen)
+    ref = cuda_scattered.splat_cuda(v5, g5, ish, *opts, box=False)
+    assert_close(ref, nd.push_core(v5, g5, ish, *opts))
+    torch.cuda.empty_cache()
+    grid = torch.full((1, P, 3), -1000.0, device=cuda_device)
+    grid[0, idx] = g5[0]
+    vals = torch.full((1, 1, P), 1e30, device=cuda_device)
+    vals[0, 0, idx] = v5[0, 0]
+    out = cuda_scattered.splat_cuda(vals, grid, ish, *opts, box=False)
+    del grid, vals
+    torch.cuda.empty_cache()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("sp", [None, 0.5])
+def test_dense_gather_takes_any_batch(cuda_device, sp):
+    """Kernel 1's value and grad at B = 65536 batches of a tiny volume (the
+    blocks of every tile and batch on one grid axis), full window and
+    adaptive: within the gate of the plain versions."""
+    inp, grid = warp_case(cuda_device, (3, 4, 5), C=1, disp=0.5, B=65536,
+                          seed=2)
+    opts = ((3, 3, 3), (3, 3, 3), 1, 0.5, sp)
+    val, g = cuda_warp.warp_cuda(inp, grid, *opts, value=True, grad=True)
+    assert_close(val, tw._pull_impl_torch(inp, grid, *opts))
+    assert_close(g, tw._grad_impl_torch(inp, grid, *opts))
 
 
 def test_push_peak_memory_256_cubic(cuda_device):

@@ -1,10 +1,11 @@
 """The fixed-point splat on the CPU: the dense push's site tiles
 (``cuda_warp.push_tile``) and the scattered box margins, and a plain
-emulation of the kernels' arithmetic (``csrc/fixed_splat.cuh``: the
-per-slice scale, each float32 tap rounded to an int64 at that scale,
-summed with ``index_add_``, converted back) held to the JAX package's
-float64 splats (and to the port's float64 plain versions, themselves held
-to JAX).
+emulation of the kernels' arithmetic (``csrc/fixed_splat.cuh``: the keep
+test of each item, the per-slice scale over the kept items, each float32
+tap rounded to an int64 at that scale, summed with ``index_add_``,
+converted back) held to the JAX package's float64 splats (and to the
+port's float64 plain versions, themselves held to JAX), also where a
+dropped item carries 1e12, 1e30, inf or NaN.
 
 The kernels run only on the card (``test_torch_cuda.py`` holds them to the
 plain versions); the emulation runs here only, as the design's precision
@@ -35,12 +36,19 @@ GATE = 1e-5   # the JAX float32 gate, 1e-5 * max(1, max|ref|)
 MASS = {"push": 1.0, "pushgrad": 2.0, "pushhess": 4.0}
 
 
-def splat_scale(vals, mass):
+def splat_scale(vals, mass, keep=None):
     """The header's scale kernel: ``(S, k)`` per slice of ``vals`` (B, C,
-    ...): ``S = mass * sum |v|`` in float64 and ``k = min(62 - ceil(log2
-    S), 127)`` (0 where S is 0), int64."""
+    P, ...), P items: ``S = mass * sum |v|`` in float64 over the values of
+    the items that ``keep`` (B, P) keeps (every item where it is None), a
+    dropped item's value not read, and ``k = min(62 - ceil(log2 S), 127)``
+    (0 where S is 0), int64."""
     B, C = vals.shape[:2]
-    S = vals.reshape(B, C, -1).double().abs().sum(-1) * mass
+    mag = vals.reshape(B, C, -1).double().abs()
+    if keep is not None:
+        per = mag.shape[-1] // keep.shape[-1]
+        mag = torch.where(keep.repeat_interleave(per, -1)[:, None], mag,
+                          0.0)
+    S = mag.sum(-1) * mass
     m, e = torch.frexp(S)
     ceil = torch.where(m == 0.5, e - 1, e).to(torch.int64)
     k = torch.where(S > 0, torch.clamp(62 - ceil, max=127),
@@ -120,18 +128,20 @@ def tap_terms(vals, grid, oshape, orders, bounds, ex, spec, dtype,
 
 
 def emulate(vals, grid, oshape, orders, bounds, ex, spec, md=None):
-    """The kernels' arithmetic: float32 taps times the float32 power of two
-    2^k of their slice (exact), rounded half to even to int64, summed,
+    """The kernels' arithmetic: the keep test of each item (the mask, and
+    the window test of the dense push), the scale of each slice over the
+    kept items, float32 taps of the kept items times the float32 power of
+    two 2^k of their slice (exact), rounded half to even to int64, summed,
     converted back.  Also returns the same float32 taps summed in float64,
     the sum of their magnitudes, the count of taps per voxel and S per
     slice."""
     B, C = vals.shape[:2]
     V = math.prod(oshape)
-    S, k = splat_scale(vals, MASS[spec])
-    scale = torch.pow(2.0, k.double()).float()      # (B, C), exact
-    # (taps, B, P), (taps, B, C, P), (taps, B, P)
+    # (taps, B, P), (taps, B, C, P), (B, P)
     lin, t32, keep = tap_terms(vals, grid, oshape, orders, bounds, ex,
                                spec, torch.float32, md)
+    S, k = splat_scale(vals, MASS[spec], keep)
+    scale = torch.pow(2.0, k.double()).float()      # (B, C), exact
     keep = keep.expand(lin.shape)
     # one index per (tap, b, item): voxel lin of batch b at b * V + lin
     idx = (lin + V * torch.arange(B)[:, None]).flatten()
@@ -303,3 +313,102 @@ def test_scale_bounds_every_sum(order, bound):
                   + 2.0 ** -24 * exact.abs().reshape(mag.shape))
         err = (out.double() - exact).abs().reshape(mag.shape)
         assert torch.all(err <= bound_)
+
+
+# An item the splat drops sets no scale: a point outside extrapolate=0's
+# mask, or a dense site whose node origin leaves the window, with a value
+# of 1e12, 1e30 (orders above the rest of its slice), inf or NaN.
+DROPPED = [1e12, 1e30, math.inf, math.nan]
+
+
+def dropped_case(kind, rng):
+    """(grid, oshape, orders, bounds, extrapolate, max_disp, index of the
+    dropped item, specs).  Scattered: 200 points in (9, 10, 11), cubic,
+    dct2, extrapolate 0, and one at x = -50.  Dense: an 8^3 push, linear,
+    dct2, ``max_disp=2``, one site moved 4.9 voxels along z (inside the
+    volume, outside the window)."""
+    if kind == "scattered":
+        ish = (9, 10, 11)
+        pts = rng.uniform(0, np.asarray(ish) - 1, (1, 201, 3))
+        pts[0, 200] = (-50.0, 5.0, 5.0)
+        return (torch.tensor(pts).float().double(), ish, (3,) * 3, (3,) * 3,
+                0, None, 200, ("push", "pushgrad", "pushhess"))
+    ish = (8, 8, 8)
+    grid = warp_grid(ish, 2.0, seed=5)
+    grid[0, 3, 4, 1, 2] = 1.0 + 4.9
+    return (grid.float().double(), ish, (1,) * 3, (3,) * 3, 1, 2.0,
+            (3 * 8 + 4) * 8 + 1, ("push", "pushgrad"))
+
+
+def jax_push(vals, grid, ish, orders, ex, md):
+    """The JAX package's ``grid_push`` of (B, C, P) values at the points
+    (B, P, D) of a cloud onto ``ish`` (its layout: points (B, P, 1, 1,
+    D)) or, with ``md``, of a dense warp: float64 on the CPU (the generic
+    tier's plain core, the window splat)."""
+    import interpol_tpu as itp
+    kw = dict(interpolation=list(orders), bound="dct2", extrapolate=bool(ex))
+    if md is not None:
+        return itp.grid_push(vals.numpy(), grid.numpy(), max_disp=md, **kw)
+    B, C, P = vals.shape
+    D = grid.shape[-1]
+    return itp.grid_push(vals.numpy().reshape((B, C, P) + (1,) * (D - 1)),
+                         grid.numpy().reshape((B, P) + (1,) * (D - 1) + (D,)),
+                         shape=ish, **kw)
+
+
+@pytest.mark.parametrize("v", DROPPED)
+@pytest.mark.parametrize("kind", ["scattered", "dense"])
+def test_dropped_item_sets_no_scale(kind, v):
+    """The kernels' arithmetic with the value v at a dropped item of
+    channel 0: every spec equal bit for bit to the same call with 0 there
+    (the item adds nothing, not even to its slice's scale); for a finite v
+    the push within 1e-5 * max(1, max|ref|) of the JAX package's
+    ``grid_push`` of the same values (CPU, float64), where a scale over
+    every value loses the whole slice at 1e30."""
+    rng = np.random.default_rng(0)
+    grid, ish, orders, bounds, ex, md, drop, specs = dropped_case(kind, rng)
+    P = math.prod(grid.shape[1:-1])
+    D = len(ish)
+    for k, spec in enumerate(specs):
+        shape = (1, 2) + tuple(grid.shape[1:-1]) + (D,) * k
+        vals = torch.tensor(rng.standard_normal(shape))
+        keep = tap_terms(vals, grid, ish, orders, bounds, ex, spec,
+                         torch.float64, md)[2]
+        assert keep.sum() == P - 1 and not keep[0, drop]
+        zero = vals.clone()
+        zero.reshape((2, P) + (D,) * k)[0, drop] = 0.0
+        big = zero.clone()
+        big.reshape((2, P) + (D,) * k)[0, drop] = v
+        out = emulate(big, grid, ish, orders, bounds, ex, spec, md)[0]
+        assert torch.equal(out, emulate(zero, grid, ish, orders, bounds, ex,
+                                        spec, md)[0])
+        if spec == "push" and math.isfinite(v):
+            ref = jax_push(big, grid, ish, orders, ex, md)
+            assert_gate(out, ref)
+            # the scale over every value, as before: S of channel 0 is
+            # about v, its quantum 2^-k far above the slice's taps
+            _, k_all = splat_scale(big, MASS[spec])
+            _, k_kept = splat_scale(big, MASS[spec], keep)
+            assert k_all[0, 0] < k_kept[0, 0] - 30
+            assert k_all[0, 1] == k_kept[0, 1]
+
+
+@pytest.mark.parametrize("spec", ["push", "pushgrad", "pushhess"])
+def test_every_item_kept_keeps_the_scale(spec):
+    """Where every item is kept (extrapolate=True, a flow within
+    ``max_disp``), the scale over the kept items is the scale over every
+    value, S and k, so such a splat keeps its bits."""
+    k = ("push", "pushgrad", "pushhess").index(spec)
+    shape = (6, 7, 5)
+    cases = [(cloud(shape, 60, seed=k), None)]
+    if spec != "pushhess":
+        cases.append((warp_grid(shape, 1.5, B=2, seed=k), 1.5))
+    for grid, md in cases:
+        P = math.prod(grid.shape[1:-1])
+        vals = spanning_values((2, 3, P) + (3,) * k, seed=k)
+        keep = tap_terms(vals, grid, shape, (3,) * 3, (3,) * 3, 1, spec,
+                         torch.float64, md)[2]
+        assert keep.all()
+        S_all, k_all = splat_scale(vals, MASS[spec])
+        S_kept, k_kept = splat_scale(vals, MASS[spec], keep)
+        assert torch.equal(S_all, S_kept) and torch.equal(k_all, k_kept)
