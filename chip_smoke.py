@@ -87,8 +87,9 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    the point-sharded pull / push of P5's 1M points (kernels 3, 4),
    ``spline_coeff_nd_sharded`` of 256^3 and ``dryrun_multichip(1)``;
 8. the kernel lab (``ops/lab.py``, ``csrc/lab.cu``): the bf16 pull against
-   its plain version over orders, bounds and a contract-breaking grid,
-   then the lab's runners at the JAX lab's shapes (its main path, launches
+   its plain version over orders, bounds and a contract-breaking grid, at
+   65536 batches, and the lane gather at 65537 groups, then the lab's
+   runners at the JAX lab's shapes (its main path, launches
    counted): the FMA probes (float32 at 1/4/8/16 chains, bf16 pairs), the
    lane gathers (the table in shared memory, and in device memory below
    L1, inside L2, of kernel 3's 256^3 volume and beyond L2), the bf16 pull
@@ -98,7 +99,8 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    ``torch.gather`` of the lane gather's reads, ``index_select`` of the
    sweeps' 16-byte rows); each
    kernel held to its plain version on the same inputs and timed beside
-   its bound.
+   its bound (a lab kernel by the device time of the kernels it
+   launches, beside one call's time by events).
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2108,6 +2110,7 @@ LAB_ROWS = {
     "lab_fma_bf16x2": ("fma2bf", "scripts/tpu_kernel_lab.py:347"),
     "lab_gather_smem": ("smem", "scripts/tpu_kernel_lab5.py:48"),
     "lab_gather_global": ("hbm", "scripts/tpu_kernel_lab.py:465"),
+    "lab_pad_bf16": ("pad_bf16", "scripts/tpu_kernel_lab2.py:183"),
     "lab_pull_bf16": ("pull_bf16", "scripts/tpu_kernel_lab2.py:183"),
 }
 # the JAX lab's shapes: the pulls at 128^3, the products 1024^2 x 64, the
@@ -2118,11 +2121,20 @@ PEAK_SOURCE = {"float32": ", data sheet",
                            "cores"}
 
 
+def share(bound_ms, ms) -> str:
+    """A time's share of its bound, in per cent."""
+    return f"{100 * bound_ms / ms:.1f} %"
+
+
 def phase_lab_kernels() -> None:
     """The bf16 pull against its plain version beyond the lab's own case
     (the runners hold every lab kernel at the lab's shapes): other orders
     and bounds, the extrapolation masks, a grid that breaks ``max_disp``
-    (the samples it drops read 0 in both)."""
+    (the samples it drops read 0 in both), and its bf16 pass against
+    the pass's plain version bit for bit under each z bound; then more
+    batches and groups than a grid's y axis holds: the bf16 pull at B =
+    65536 and the lane gather at G = 65537, held to their plain
+    versions."""
     with torch.no_grad(), lab.uncounted():
         vol, grid = lab.lab_case(64, 2.0, DEV, seed=3)
         wild = grid.clone()
@@ -2142,21 +2154,53 @@ def phase_lab_kernels() -> None:
                 log(f"lab_pull_bf16 64^3 orders {orders} bounds {bounds} "
                     f"extrapolate {ex}, {name} grid: err vs plain {e:.3g} "
                     f"(tol {t:.3g})")
+            margins = lab.pad_margins(orders[2], 2.0)
+            if not torch.equal(lab.pad_bf16(vol, bounds[2], *margins),
+                               lab.pad_bf16_plain(vol, bounds[2], *margins)):
+                raise AssertionError(f"lab_pad_bf16 bound {bounds[2]} "
+                                     f"margins {margins}: differs")
+            log(f"lab_pad_bf16 64^3 bound {bounds[2]} margins {margins}: "
+                f"equal to plain")
+        gen = torch.Generator(DEV).manual_seed(5)
+        vol = torch.randn((65536, 1, 4, 4, 4), generator=gen, device=DEV)
+        grid = lab.lab_case(4, 1.0, DEV, seed=6)[1].expand(
+            65536, -1, -1, -1, -1) + 0.3 * torch.randn(
+                (65536, 4, 4, 4, 3), generator=gen, device=DEV)
+        out = lab.pull_bf16(vol, grid, (3, 1, 2), (3, 4, 0), 1, 1.0)
+        e, t = rel_err(out, lab.pull_bf16_plain(vol, grid, (3, 1, 2),
+                                                (3, 4, 0), 1, 1.0),
+                       lab.TOL_PULL_BF16)
+        table = torch.randn((65537, 2, 5), generator=gen, device=DEV)
+        idx = torch.randint(-5, 10, (65537, 2, 3), generator=gen,
+                            device=DEV, dtype=torch.int32)
+        same = all(torch.equal(lab.gather(table, idx, 3, smem),
+                               lab.gather_plain(table, idx, 3))
+                   for smem in (True, False))
+        if not (e <= t and same):
+            raise AssertionError(f"lab past 65535: bf16 pull err {e:.3g}, "
+                                 f"gather equal {same}")
+        log(f"lab past 65535: lab_pull_bf16 B=65536 4^3 err vs plain "
+            f"{e:.3g} (tol {t:.3g}); lab_gather G=65537 equal to plain in "
+            f"shared and device memory")
 
 
 def phase_lab(card) -> dict:
     """The kernel lab's main path: its runners at the JAX lab's shapes,
     the launch counts set to 0 just before and read just after (the
     launches that hold a kernel to its plain version are not counted).
-    Returns the kernels line's lab rows by name, and the launches."""
+    A lab row's ``ms`` is its kernels' device time (``lab.device_ms``),
+    printed beside the time of one call by events.  Returns the kernels
+    line's lab rows by name, and the launches."""
     lab.reset_launches()
     res = {}
     for v in lab.FMA_VARIANTS:
         r = res[v] = lab.fma_probe(v, DEV)
         log(f"lab fma {v} {r['shape']} reps {r['reps']} nacc {r['nacc']} "
-            f"{r['dtype']}: {r['ms']:.4f} ms, {r['tflop_s']:.2f} TFLOP/s "
+            f"{r['dtype']}: {r['ms']:.4f} ms device (a call by events "
+            f"{r['call_ms']:.4f}), {r['tflop_s']:.2f} TFLOP/s "
             f"(peak {r['peak_tflop_s']:.1f}{PEAK_SOURCE[r['dtype']]}; bound "
-            f"{r['bound_ms']:.4f} ms), "
+            f"{r['bound_ms']:.4f} ms, {share(r['bound_ms'], r['ms'])} of "
+            f"it), "
             f"err vs plain {r['max_abs_err']:.3g} (tol {r['tol']:.3g}), "
             f"plain {r['plain_ms']:.1f} ms [{card}]")
     for t in lab.GATHER_TABLES:
@@ -2184,10 +2228,21 @@ def phase_lab(card) -> dict:
             + f" [{card}]")
     r = res["pull_bf16"] = lab.pull_bf16_probe(LAB_N, 2.0, DEV)
     log(f"lab pull_bf16 {LAB_N}^3 cubic dct2 max_disp 2: {r['ms']:.4f} ms "
-        f"(the f32 pull, kernel 1a: {r['ms_f32']:.4f} ms), bound "
+        f"device, the bf16 pass included ({share(r['bound_ms'], r['ms'])} "
+        f"of its bound; a call by events {r['call_ms']:.4f}; +"
+        f"{r['extra_mib']:.1f} MiB beside the output) beside the f32 "
+        f"pull, kernel 1a, on the same inputs: {r['ms_f32']:.4f} ms "
+        f"({share(r['bound_ms'], r['ms_f32'])}; a call "
+        f"{r['call_ms_f32']:.4f}); bound "
         f"{r['bound_ms']:.4f} ms, err vs plain {r['max_abs_err']:.3g} (tol "
         f"{r['tol']:.3g}), vs the f32 pull {r['vs_f32']:.3g}, plain "
         f"{r['plain_ms']:.1f} ms [{card}]")
+    r = res["pad_bf16"] = r["pad"]
+    log(f"lab pad_bf16 {LAB_N}^3 dct2, its bf16 pass alone: {r['ms']:.4f} "
+        f"ms device ({share(r['bound_ms'], r['ms'])} of its bound "
+        f"{r['bound_ms']:.4f} ms, {r['bound_by']}), err vs plain "
+        f"{r['max_abs_err']:.3g} (equal bits), plain {r['plain_ms']:.2f} ms "
+        f"[{card}]")
     for r in lab.pull_variants(LAB_N, 2.0, DEV):
         extra = f", spread {tuple(round(s, 3) for s in r['spread'])}, " \
             f"vs 1a {r['vs_full']:.3g}" if r.get("spread") else ""

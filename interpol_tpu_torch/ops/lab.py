@@ -13,9 +13,10 @@ Counterparts of the Pallas functions of the JAX package's kernel lab
   ``tpu_kernel_lab5.py::probe``: a per-row table gather, ``reps`` chained
   reads at ``(idx + i) % T`` summed, the table in shared memory or read
   from device memory;
-- :func:`pull_bf16` (``lab_pull_bf16``): ``tpu_kernel_lab2.py::
-  make_kernel_call`` with ``_kernel_v4``: the dense value pull with bf16
-  box values and z weights, their products summed in float32.
+- :func:`pull_bf16` (``lab_pull_bf16``, after :func:`pad_bf16`,
+  ``lab_pad_bf16``): ``tpu_kernel_lab2.py::make_kernel_call`` with
+  ``_kernel_v4``: the dense value pull with bf16 box values and z weights,
+  their products summed in float32.
 
 The lab's f32 pull variants (``pull_v1``/``v2``/``v3``, lab3's ``pull_v5``)
 compute kernel 1a's function (``csrc/warp.cu``), and lab4's
@@ -26,11 +27,15 @@ adaptive mode beside the full window.  The XLA probes (``xla_fma_probe``,
 :func:`matmul_probe`: plain PyTorch calls, no kernel of the port.
 
 Each wrapper takes CPU tensors to the plain version (``fma_plain``,
-``gather_plain``, ``pull_bf16_plain``) and CUDA tensors to the kernel,
-raising on what the kernel does not take; it never falls back.  Each
+``gather_plain``, ``pad_bf16_plain``, ``pull_bf16_plain``) and CUDA
+tensors to the kernel, raising on what the kernel does not take; it never
+falls back.  Each
 launch adds one to ``LAUNCHES_BY_MODE`` under its kernel's name.  The
-runners time with CUDA events (median after a warm-up) and name the card
-(``nvidia-smi``'s name and power limit) beside every rate.
+runners time a kernel by its device time (:func:`device_ms`: the kernels
+a call launches, traced by ``torch.profiler``) beside the time of one call
+by CUDA events (:func:`cuda_ms`, the host's work inside the call
+included), and name the card (``nvidia-smi``'s name and power limit)
+beside every rate.
 """
 from __future__ import annotations
 
@@ -45,15 +50,17 @@ import numpy as np
 import torch
 
 __all__ = ["fma", "fma_plain", "gather", "gather_plain", "lane_index",
-           "pull_bf16", "pull_bf16_plain", "LAUNCHES_BY_MODE",
-           "reset_launches", "uncounted", "FMA_VARIANTS", "GATHER_TABLES",
-           "PULL_BLOCKS", "fma_probe", "gather_probe", "pull_variants",
-           "pull_bf16_probe", "matmul_probe", "chain_probe", "smooth_grid",
-           "lab_case", "card_line", "cuda_ms", "timed_once"]
+           "pad_bf16", "pad_bf16_plain", "pad_margins", "pull_bf16",
+           "pull_bf16_plain", "LAUNCHES_BY_MODE",
+           "reset_launches", "uncounted", "FMA_VARIANTS",
+           "GATHER_TABLES", "PULL_BLOCKS", "fma_probe", "gather_probe",
+           "pull_variants", "pull_bf16_probe", "matmul_probe", "chain_probe",
+           "smooth_grid", "lab_case", "card_line", "cuda_ms", "device_ms",
+           "timed_once"]
 
 LAUNCHES_BY_MODE: Dict[str, int] = {
     "lab_fma_f32": 0, "lab_fma_bf16x2": 0, "lab_gather_smem": 0,
-    "lab_gather_global": 0, "lab_pull_bf16": 0}
+    "lab_gather_global": 0, "lab_pad_bf16": 0, "lab_pull_bf16": 0}
 
 # one H100 SXM at its 700 W limit: HBM and float32 rates from NVIDIA's
 # data sheet; bf16 outside the tensor cores from the Hopper architecture
@@ -93,7 +100,9 @@ def _entry(name: str):
             "lab_fma_f32": [vp, vp, vp, ll, i, i, i, vp],
             "lab_fma_bf16x2": [vp, vp, vp, ll, i, i, i, vp],
             "lab_gather": [vp, vp, vp, i, i, i, i, i, i, vp],
-            "lab_pull_bf16": [vp, vp, vp, ctypes.POINTER(_WarpParams), vp],
+            "lab_pad_bf16": [vp, vp, ll, i, i, i, i, vp],
+            "lab_pull_bf16": [vp, vp, vp, ctypes.POINTER(_WarpParams), i,
+                              i, vp],
         }[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -184,24 +193,26 @@ def fma(a: torch.Tensor, b: torch.Tensor, reps: int, nacc: int = 8,
     """``nacc`` fused multiply-add chains of ``reps / nacc`` steps per
     element of float32 ``a``, ``b`` (same shape) -> float32, the chains'
     sum (:func:`fma_plain`).  ``dtype`` bfloat16: the chains in bf16 (the
-    inputs rounded to bf16 first), two elements per instruction; the
-    element count must be even."""
+    kernel rounds the inputs to bf16 as it reads them), two elements per
+    instruction; the element count must be even."""
     if a.device.type == "cpu":
         return fma_plain(a, b, reps, nacc, dtype, zero_init)
     _fma_args(a, b, reps, nacc, dtype)
     _check("fma", torch.float32, a, b)
     out = torch.empty_like(a)
     n = a.numel()
+    knobs = (nacc, reps // nacc, int(zero_init))
     if dtype == torch.bfloat16:
         if n % 2:
             raise ValueError("fma: bf16 pairs need an even element count")
-        xa, xb = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        _call("lab_fma_bf16x2", a, xa.data_ptr(), xb.data_ptr(),
-              out.data_ptr(), n // 2, nacc, reps // nacc, int(zero_init))
+        # the kernel reads float32 pairs (8-byte aligned) and rounds them
+        a, b = (t if t.data_ptr() % 8 == 0 else t.clone() for t in (a, b))
+        _call("lab_fma_bf16x2", a, a.data_ptr(), b.data_ptr(),
+              out.data_ptr(), n // 2, *knobs)
         LAUNCHES_BY_MODE["lab_fma_bf16x2"] += 1
     else:
         _call("lab_fma_f32", a, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-              n, nacc, reps // nacc, int(zero_init))
+              n, *knobs)
         LAUNCHES_BY_MODE["lab_fma_f32"] += 1
     return out
 
@@ -304,16 +315,71 @@ def pull_bf16_plain(inp: torch.Tensor, grid: torch.Tensor,
     return out
 
 
+def pad_margins(order: int, max_disp: float):
+    """(zlo, zhi): the z margins of :func:`pad_bf16` that every tap of a
+    sample inside the ``max_disp`` window reaches (``lab.cu``'s ``pad_lo``
+    / ``pad_hi``)."""
+    from .window import window_range
+    smin, smax = window_range(int(order), float(max_disp))
+    return max(0, -smin), max(0, smax)
+
+
+def pad_bf16_plain(inp: torch.Tensor, bound: int, zlo: int,
+                   zhi: int) -> torch.Tensor:
+    """The last axis of ``inp`` (..., Z) extended by ``zlo`` / ``zhi``
+    folded values, each times its fold sign under ``bound``, rounded to
+    bf16: (..., zlo + Z + zhi) bfloat16."""
+    from .bounds import fold_index, fold_sign
+    Z = inp.shape[-1]
+    i = np.arange(-zlo, Z + zhi)
+    out = inp.float()[..., torch.as_tensor(fold_index(i, Z, bound),
+                                           device=inp.device)]
+    s = fold_sign(i, Z, bound, np.float32)
+    if s is not None:
+        out = out * torch.as_tensor(s, device=inp.device)
+    return out.to(torch.bfloat16)
+
+
+def pad_bf16(inp: torch.Tensor, bound: int, zlo: int,
+             zhi: int) -> torch.Tensor:
+    """:func:`pad_bf16_plain` on the card (``lab_pad_bf16``): float32
+    ``inp`` (..., Z), a warp a row.  The result lies at the start of a
+    buffer of 8 more values, which :func:`pull_bf16`'s 8-byte reads past
+    the last row take (they reach no sum)."""
+    if inp.device.type == "cpu":
+        return pad_bf16_plain(inp, bound, zlo, zhi)
+    _check("pad_bf16", torch.float32, inp)
+    Z = inp.shape[-1] if inp.ndim else 0
+    if Z < 1 or not 0 <= int(bound) <= 6 or zlo < 0 or zhi < 0 \
+            or zlo + Z + zhi >= 2**31:
+        raise ValueError(f"pad_bf16: shape {tuple(inp.shape)}, bound "
+                         f"{bound}, margins ({zlo}, {zhi})")
+    zp = zlo + Z + zhi
+    rows = inp.numel() // Z
+    buf = torch.empty(rows * zp + 8, dtype=torch.bfloat16,
+                      device=inp.device)
+    if rows:
+        _call("lab_pad_bf16", inp, inp.data_ptr(), buf.data_ptr(), rows, Z,
+              int(bound), zlo, zhi)
+        LAUNCHES_BY_MODE["lab_pad_bf16"] += 1
+    return buf[:rows * zp].view(*inp.shape[:-1], zp)
+
+
 def pull_bf16(inp: torch.Tensor, grid: torch.Tensor, orders: Sequence[int],
               bounds: Sequence[int], extrapolate: int,
               max_disp) -> torch.Tensor:
-    """:func:`pull_bf16_plain` on the card (``lab_pull_bf16``): float32
-    inp (B, C, X, Y, Z) and grid (B, X, Y, Z, 3), orders 0-3, the block
-    tile of the dense gather (``cuda_warp.warp_block``)."""
+    """:func:`pull_bf16_plain` on the card: float32 inp (B, C, X, Y, Z) and
+    grid (B, X, Y, Z, 3), orders 0-3, the block tile of the dense gather
+    (``cuda_warp.warp_block``).  :func:`pad_bf16` first writes the volume
+    rounded to bf16, its z rows padded with the folded values the window
+    can reach (:func:`pad_margins`), 2 bytes a value (the call's extra
+    memory); then ``lab_pull_bf16`` reads each row's z taps from it as two
+    aligned 8-byte words."""
     if inp.device.type == "cpu":
         return pull_bf16_plain(inp, grid, orders, bounds, extrapolate,
                                max_disp)
     from .cuda_warp import _launch_setup
+    from .window import _md_tuple
     if grid.shape[-1] != 3 or not all(0 <= int(o) <= 3 for o in orders):
         raise ValueError("pull_bf16: 3-D warps of orders 0-3")
     setup = _launch_setup("pull_bf16", inp, grid, orders, bounds,
@@ -322,8 +388,10 @@ def pull_bf16(inp: torch.Tensor, grid: torch.Tensor, orders: Sequence[int],
     if setup is None:
         return out
     inp3, grid3, p, _, _ = setup
-    _call("lab_pull_bf16", inp3, inp3.data_ptr(), grid3.data_ptr(),
-          out.data_ptr(), ctypes.byref(p))
+    zlo, zhi = pad_margins(orders[2], _md_tuple(max_disp, 3)[2])
+    padded = pad_bf16(inp3, p.bound[2], zlo, zhi)
+    _call("lab_pull_bf16", inp3, padded.data_ptr(), grid3.data_ptr(),
+          out.data_ptr(), ctypes.byref(p), zlo, padded.shape[-1])
     LAUNCHES_BY_MODE["lab_pull_bf16"] += 1
     return out
 
@@ -358,6 +426,30 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """The device time in ms of one call of ``fn``: the kernels and copies
+    it launches, traced by ``torch.profiler`` (CUDA activity) over ``reps``
+    calls after ``warmup``; each kernel's mean duration a launch times its
+    launches a call.  A trace now and then lacks some launches' records
+    (the mean stands on those it has) or holds none (traced again, up to 5
+    times).  The host's time inside a call, which an event pair around
+    that one call counts while the device waits, is left out."""
+    for _ in range(warmup):
+        fn()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.device_time_total > 0]
+        if ev:
+            return sum(e.device_time_total / e.count
+                       * max(1, round(e.count / reps)) for e in ev) / 1e3
+    raise RuntimeError("device_ms: the profiler traced no launch")
 
 
 def timed_once(fn):
@@ -429,13 +521,13 @@ def fma_probe(variant: str = "fma2", device="cuda", reps_t: int = 20,
         tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
         res["max_abs_err"], res["tol"], res["plain_ms"] = _held(
             kern, lambda: fma_plain(a, b, reps, nacc, dtype, zero), tol)
-    ms = cuda_ms(kern, reps_t, 2)
+    ms = device_ms(kern, reps_t)
     n = a.numel() * reps
     rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
     b_ms, b_by = _bound(3 * 4 * a.numel(), 2 * n, rate)
-    res.update(ms=ms, tfma_s=n / ms / 1e9, tflop_s=2 * n / ms / 1e9,
-               bound_ms=b_ms, bound_by=b_by, peak_tflop_s=rate / 1e12,
-               card=card_line())
+    res.update(ms=ms, call_ms=cuda_ms(kern, reps_t, 2), tfma_s=n / ms / 1e9,
+               tflop_s=2 * n / ms / 1e9, bound_ms=b_ms, bound_by=b_by,
+               peak_tflop_s=rate / 1e12, card=card_line())
     return res
 
 
@@ -478,7 +570,7 @@ def gather_probe(table: str = "smem", device="cuda", reps_t: int = 20,
     if check:
         res["max_abs_err"], res["tol"], res["plain_ms"] = _held(
             kern, lambda: gather_plain(tbl, idx, r), TOL_F32)
-    ms = cuda_ms(kern, reps_t, 2)
+    ms = device_ms(kern, reps_t)
     n = G * S * L
     nbytes = 4 * (G * S * T + 2 * n)
     b_ms, b_by = _bound(nbytes, n * r)
@@ -487,7 +579,8 @@ def gather_probe(table: str = "smem", device="cuda", reps_t: int = 20,
     per_run = sum(((o * 4) % SECTOR + 4 * r + SECTOR - 1) // SECTOR
                   for o in range(SECTOR // 4)) / (SECTOR // 4)
     sector_bytes = SECTOR * per_run * n + 8 * n
-    res.update(ms=ms, greads_s=n * r / ms / 1e6, bound_ms=b_ms,
+    res.update(ms=ms, call_ms=cuda_ms(kern, reps_t, 2),
+               greads_s=n * r / ms / 1e6, bound_ms=b_ms,
                bound_by=b_by, sector_mb=sector_bytes / 1e6,
                sector_ms=sector_bytes / HBM_BYTES_PER_S * 1e3,
                card=card_line())
@@ -508,8 +601,8 @@ def _gather_library(tbl, idx, r, reps_t, check):
     kk = torch.remainder(idx.long()[..., None]
                          + torch.arange(r, device=tbl.device), T)
     kk = kk.reshape(G, S, L * r)
-    out = {"lib_gather_ms": cuda_ms(lambda: torch.gather(tbl, 2, kk),
-                                    reps_t, 2), "lib_rows_ms": None,
+    out = {"lib_gather_ms": device_ms(lambda: torch.gather(tbl, 2, kk),
+                                      reps_t), "lib_rows_ms": None,
            "lib_rows16_ms": None}
     if check:
         lib = torch.gather(tbl, 2, kk).reshape(G, S, L, r).sum(-1)
@@ -520,11 +613,11 @@ def _gather_library(tbl, idx, r, reps_t, check):
         rows = tbl.reshape(-1, 4)
         base = (torch.arange(G * S, device=tbl.device) * T).reshape(G, S, 1)
         ridx = ((base + idx.long()) // 4).reshape(-1)
-        out["lib_rows_ms"] = cuda_ms(
-            lambda: torch.index_select(rows, 0, ridx), reps_t, 2)
+        out["lib_rows_ms"] = device_ms(
+            lambda: torch.index_select(rows, 0, ridx), reps_t)
         rows16 = rows.view(torch.complex128)[:, 0]
-        out["lib_rows16_ms"] = cuda_ms(
-            lambda: torch.index_select(rows16, 0, ridx), reps_t, 2)
+        out["lib_rows16_ms"] = device_ms(
+            lambda: torch.index_select(rows16, 0, ridx), reps_t)
     return out
 
 
@@ -576,24 +669,51 @@ TOL_PULL_BF16 = 1e-5
 
 def pull_bf16_probe(N: int = 128, max_disp: float = 2.0, device="cuda",
                     reps_t: int = 20, check: bool = True) -> dict:
-    """``lab_pull_bf16`` at the lab's shapes (cubic, dct2): its time, the
-    f32 pull's (kernel 1a) beside it, and its distance from that pull."""
+    """``lab_pull_bf16`` at the lab's shapes (cubic, dct2): its device time
+    (the bf16 pass and the pull), the f32 pull's (kernel 1a) beside it,
+    each call's time by events, its extra device memory, and its distance
+    from the f32 pull; under ``pad``, the bf16 pass alone (``lab_pad_bf16``)
+    held to its plain version bit for bit, its device time and bound
+    (bytes: the volume read, the padded volume written)."""
     from .cuda_warp import warp_cuda
     vol, grid = lab_case(N, max_disp, device)
     opts = ((3, 3, 3), (3, 3, 3), 1, max_disp)
+    zlo, zhi = pad_margins(3, max_disp)
 
     def kern():
         return pull_bf16(vol, grid, *opts)
-    res = dict(N=N, max_disp=max_disp)
+
+    def pad():
+        return pad_bf16(vol, 3, zlo, zhi)
+    res = dict(N=N, max_disp=max_disp, pad={})
     if check:
         res["max_abs_err"], res["tol"], res["plain_ms"] = _held(
             kern, lambda: pull_bf16_plain(vol, grid, *opts), TOL_PULL_BF16)
-    ms = cuda_ms(kern, reps_t, 2)
+        with uncounted():
+            got = pad()
+        ref, p_ms = timed_once(lambda: pad_bf16_plain(vol, 3, zlo, zhi))
+        if not torch.equal(got, ref):
+            raise AssertionError("pad_bf16: differs from its plain version")
+        res["pad"].update(max_abs_err=(got.float() - ref.float()).abs()
+                          .max().item(), tol=0.0, plain_ms=p_ms)
+    b_ms, b_by = _bound(4 * vol.numel() + 2 * (zlo + N + zhi) * N * N, 0)
+    res["pad"].update(ms=device_ms(pad, reps_t), bound_ms=b_ms,
+                      bound_by=b_by)
+    ms = device_ms(kern, reps_t)
     with uncounted(), torch.no_grad():
         f32 = warp_cuda(vol, grid, *opts)[0]
         res["vs_f32"] = (kern() - f32).abs().max().item()
-    res.update(ms=ms, ms_f32=cuda_ms(lambda: warp_cuda(vol, grid, *opts),
-                                     reps_t, 2))
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kern()
+        torch.cuda.synchronize()
+        res["extra_mib"] = (torch.cuda.max_memory_allocated() - live
+                            - 4 * vol.numel()) / 2**20
+    f32 = lambda: warp_cuda(vol, grid, *opts)  # noqa: E731
+    res.update(ms=ms, call_ms=cuda_ms(kern, reps_t, 2),
+               ms_f32=device_ms(f32, reps_t),
+               call_ms_f32=cuda_ms(f32, reps_t, 2))
     res["bound_ms"], res["bound_by"] = _bound(*_pull_work(vol.numel()))
     res["card"] = card_line()
     return res
@@ -624,7 +744,7 @@ def pull_variants(N: int = 128, max_disp: float = 2.0, device="cuda",
                 raise AssertionError(f"block {blk}: differs from the "
                                      f"default block's pull")
             out.append(dict(variant="1a block " + "x".join(
-                str(1 << e) for e in blk), ms=cuda_ms(kern, reps_t, 2),
+                str(1 << e) for e in blk), ms=device_ms(kern, reps_t),
                 bound_ms=b_ms, bound_by=b_by, card=card))
         sg = smooth_grid(N, max_disp, device=device)[None]
         spread = required_tile_spread(sg)
@@ -632,9 +752,9 @@ def pull_variants(N: int = 128, max_disp: float = 2.0, device="cuda",
         ad = warp_cuda(vol, sg, *opts, spread=spread)[0]
         err = (ad - full).abs().max().item()
         for name, sp in (("1a smooth grid", None), ("1d smooth grid", spread)):
-            out.append(dict(variant=name, spread=sp, ms=cuda_ms(
+            out.append(dict(variant=name, spread=sp, ms=device_ms(
                 lambda sp=sp: warp_cuda(vol, sg, *opts, spread=sp),
-                reps_t, 2), bound_ms=b_ms, bound_by=b_by, card=card,
+                reps_t), bound_ms=b_ms, bound_by=b_by, card=card,
                 **({"vs_full": err} if sp else {})))
     return out
 

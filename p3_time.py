@@ -2,8 +2,8 @@
 """Time P3, one ``svf_train_step`` of the port at 256^3, on one NVIDIA GPU.
 
     python3 p3_time.py [--root CHECKOUT] [--tag NAME]
-                       [--splats | --gathers | --designs | --trace]
-                       [--rows TEXT]
+                       [--splats | --gathers | --designs | --trace |
+                        --lab] [--rows TEXT]
 
 The configuration is ``chip_smoke.py``'s P3: ``SVFModel(256^3, coarse
 8^3, cubic, dct2, max_disp=4, steps=6)``, parameters 0.5 N(0,1) (numpy
@@ -44,10 +44,24 @@ value, grad, hess, value+grad and grad+hess at order 1 and cubic, dct2,
 and P7's pull; ``cuda_warp.warp_cuda`` / ``hess_cuda`` on the dense flow:
 value, grad and hess at orders 1, 3 and 5, dct2).  ``--gathers`` builds
 only the two gather kernels.
+``--lab`` times the kernel lab's kernels (``csrc/lab.cu``) through
+``ops/lab.py``'s wrappers, each row by its device time
+(``torch.profiler``: the kernels a call launches, 20 calls) with its
+share of its bound, by one call's time (CUDA events, median of 20; the
+host's work in the call included), and with a digest of its output: the
+FMA chains of every ``FMA_VARIANTS`` entry (the lab's inputs, numpy seed
+0), the bf16 pull at 128^3 and 256^3 (cubic, dct2, ``max_disp=2``,
+``lab_case``) beside kernel 1a on the same inputs, the bf16 pull on
+``chip_smoke.py``'s lab cases (64^3, three order / bound / mask sets, on
+the lab grid and on one that breaks ``max_disp``), and the lane gathers
+of every ``GATHER_TABLES`` entry; a row of several kernels (the bf16
+pull: its pass and the pull) also gives each kernel's device time.  It
+builds only ``lab.cu`` and ``warp.cu``.
 """
 from __future__ import annotations
 
 import argparse
+import re
 import statistics
 import subprocess
 import sys
@@ -62,6 +76,7 @@ def main() -> None:
     mode.add_argument("--gathers", action="store_true")
     mode.add_argument("--designs", action="store_true")
     mode.add_argument("--trace", action="store_true")
+    mode.add_argument("--lab", action="store_true")
     ap.add_argument("--rows", default="")
     args = ap.parse_args()
     if args.root:
@@ -80,6 +95,11 @@ def main() -> None:
         for name in ("warp", "gather"):
             _build.load_library(name)
         time_gathers(vol, coarse, args.tag, card, args.rows)
+        return
+    if args.lab:
+        for name in ("lab", "warp"):
+            _build.load_library(name)
+        time_lab(args.tag, card, args.rows)
         return
     _build.build_all()
     if args.splats or args.designs or args.trace:
@@ -134,6 +154,34 @@ def cuda_ms(fn, reps=20):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, calls=20, by_kernel=None):
+    """The device time in ms of one call of ``fn``: the kernels and copies
+    it launches (``torch.profiler``) over ``calls`` calls after two
+    warm-up calls, each kernel's mean duration a launch times its launches
+    a call (a trace now and then lacks some records); nan when five traces
+    hold none.  ``by_kernel``: a dict that receives each kernel's share.
+    Its own copy of ``ops/lab.py::device_ms``: the checkout under
+    ``--root`` may predate that one."""
+    import torch
+    for _ in range(2):
+        fn()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ms = {e.key: e.device_time_total / e.count
+              * max(1, round(e.count / calls)) / 1e3
+              for e in prof.key_averages() if e.device_time_total > 0}
+        if ms:
+            if by_kernel is not None:
+                by_kernel.update(ms)
+            return sum(ms.values())
+    return float("nan")
 
 
 def trace_kernels(label, fn, card, calls=10):
@@ -447,6 +495,106 @@ def time_gathers(vol, coarse, tag, card, only=""):
                 continue
             print(f"gather {name} 256^3 [{tag}]: {cuda_ms(fn):.3f} ms "
                   f"(median of 20) [{card}]", flush=True)
+
+
+def lab_inputs():
+    """The lab rows' inputs, made alike in every checkout: per FMA variant
+    (a, b) from numpy seed 0 as ``lab.fma_probe`` makes them; the pull
+    cases; the gather tables and indices as ``lab.gather_probe``."""
+    import numpy as np
+    import torch
+    from interpol_tpu_torch.ops import lab
+    fmas = {}
+    for v, (shape, reps, nacc, dtype, zero) in lab.FMA_VARIANTS.items():
+        rng = np.random.default_rng(0)
+        a, b = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                             device="cuda") for _ in range(2))
+        fmas[v] = (a, b, reps, nacc, dtype, zero)
+    pulls = {N: lab.lab_case(N, 2.0, "cuda") for N in (128, 256)}
+    # chip_smoke.py's phase_lab_kernels: 64^3, seed 3, and the same grid
+    # with a fifth of its x coordinates moved by 3 (past max_disp)
+    vol, grid = lab.lab_case(64, 2.0, "cuda", seed=3)
+    wild = grid.clone()
+    wild[..., 0] += 3.0 * (torch.rand(grid.shape[:-1], device="cuda",
+                                      generator=torch.Generator("cuda")
+                                      .manual_seed(4)) < 0.2)
+    cases = [(orders, bounds, ex, name, vol, g)
+             for orders, bounds, ex in [((3, 3, 3), (3, 3, 3), 1),
+                                        ((0, 1, 2), (5, 0, 6), 0),
+                                        ((3, 2, 1), (2, 4, 3), 2)]
+             for name, g in (("contract", grid), ("broken", wild))]
+    gathers = {}
+    for t, (G, S, T, L, r, smem) in lab.GATHER_TABLES.items():
+        gen = torch.Generator("cuda").manual_seed(0)
+        tbl = torch.randn((G, S, T), generator=gen, device="cuda")
+        idx = torch.randint(0, T, (G, S, L), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        gathers[t] = (tbl, idx, r, smem)
+    return fmas, pulls, cases, gathers
+
+
+def fma_bound_ms(a, reps, dtype):
+    """The FMA rows' bound: 2 reps operations an element at the card's
+    peak for the chain's type (a, b read and the output written once take
+    less)."""
+    import torch
+    from interpol_tpu_torch.ops import lab
+    rate = lab.BF16_OPS_PER_S if dtype == torch.bfloat16 \
+        else lab.FP32_OPS_PER_S
+    return max(2 * a.numel() * reps / rate, 12 * a.numel()
+               / lab.HBM_BYTES_PER_S) * 1e3
+
+
+def pull_bound_ms(vol):
+    """Bytes: the volume, the grid and the output once (float32)."""
+    from interpol_tpu_torch.ops import lab
+    return 4 * 5 * vol.numel() / lab.HBM_BYTES_PER_S * 1e3
+
+
+def time_lab(tag, card, only=""):
+    import torch
+    from interpol_tpu_torch.ops import lab
+    from interpol_tpu_torch.ops.cuda_warp import warp_cuda
+    fmas, pulls, cases, gathers = lab_inputs()
+    cubic = ((3,) * 3, (3,) * 3, 1, 2.0)
+    rows = []
+    for v, (a, b, reps, nacc, dtype, zero) in fmas.items():
+        rows.append((f"fma {v}", lambda a=a, b=b, r=reps, n=nacc, d=dtype,
+                     z=zero: lab.fma(a, b, r, n, d, z),
+                     fma_bound_ms(a, reps, dtype)))
+    for N, (vol, grid) in pulls.items():
+        rows += [(f"pull_bf16 {N}^3 cubic dct2 max_disp 2",
+                  lambda v=vol, g=grid: lab.pull_bf16(v, g, *cubic),
+                  pull_bound_ms(vol)),
+                 (f"kernel 1a {N}^3 cubic dct2 max_disp 2",
+                  lambda v=vol, g=grid: warp_cuda(v, g, *cubic)[0],
+                  pull_bound_ms(vol))]
+    for orders, bounds, ex, name, vol, g in cases:
+        rows.append((f"pull_bf16 64^3 orders {orders} bounds {bounds} "
+                     f"extrapolate {ex} {name} grid",
+                     lambda v=vol, g=g, o=(orders, bounds, ex, 2.0):
+                     lab.pull_bf16(v, g, *o), pull_bound_ms(vol)))
+    for t, (tbl, idx, r, smem) in gathers.items():
+        n = idx.numel()
+        rows.append((f"gather {t}", lambda tb=tbl, i=idx, r=r, s=smem:
+                     lab.gather(tb, i, r, s),
+                     4 * (tbl.numel() + 2 * n) / lab.HBM_BYTES_PER_S * 1e3))
+    with torch.no_grad():
+        for name, fn, bound in rows:
+            if not wanted(name, only):
+                continue
+            parts = {}
+            dev = device_ms(fn, by_kernel=parts)    # nan: not measured
+            ms = cuda_ms(fn)
+            extra = ""
+            if len(parts) > 1:      # the bf16 pull's pass and pull
+                extra = " (" + ", ".join(
+                    f"{(re.search(r'[A-Za-z0-9_]+_kernel', k) or [k])[0]} "
+                    f"{v:.4f}" for k, v in sorted(parts.items())) + ")"
+            print(f"lab {name} [{tag}]: device {dev:.4f} ms, bound "
+                  f"{bound:.4f} ms, {100 * bound / dev:.1f} % of it; a call "
+                  f"{ms:.4f} ms (events, median of 20){extra}, output "
+                  f"sha256 {digest(fn())} [{card}]", flush=True)
 
 
 if __name__ == "__main__":

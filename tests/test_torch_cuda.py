@@ -7,7 +7,9 @@ the train steps and the pyramid on them, and the prefilter (against the
 CPU in float64, with TF32 on) and the label paths on the kernels, the
 scattered tier's public functions (``ops/scattered.py``), and the splats'
 scale over the kept items (1e30, inf or NaN at a dropped item changes no
-bit) and launches past 65535 slices, channels or batches.
+bit) and launches past 65535 slices, channels or batches, and the kernel
+lab's kernels (``csrc/lab.cu``) over every bound and mask, at element
+counts no tile divides, and past 65535 batches and groups.
 
 Every test here is marked ``cuda`` and skips where there is no NVIDIA GPU
 (the kernels have no CPU mode).  The file imports no JAX, so it also runs on
@@ -1272,6 +1274,82 @@ def test_lab_pull_bf16_matches_plain(cuda_device, orders, bounds, ex, md,
     assert torch.equal(out == 0, ref == 0)
 
 
+# every bound (zero, replicate, dct1, dct2, dst1, dst2, dft) under every
+# extrapolation mask, the orders 0-3 turning over the axes, on a grid that
+# reaches past every edge and breaks max_disp at a fifth of its samples
+LAB_BF16_CASES = [(tuple((b + ex + k) % 4 for k in range(3)), (b,) * 3, ex)
+                  for b in range(7) for ex in (0, 1, 2)]
+
+
+@pytest.mark.parametrize("orders,bounds,ex", LAB_BF16_CASES)
+def test_lab_pull_bf16_every_bound_and_mask(cuda_device, orders, bounds, ex):
+    from interpol_tpu_torch.ops import lab
+    inp, grid = warp_case(cuda_device, (13, 10, 37), C=3, disp=2.0,
+                          break_contract=2.5)
+    grid = grid + 3.0 * (torch.rand(grid.shape, device=cuda_device,
+                                    generator=torch.Generator(cuda_device)
+                                    .manual_seed(sum(orders) + ex)) < 0.1)
+    lab.reset_launches()
+    out = lab.pull_bf16(inp, grid, orders, bounds, ex, 2.0)
+    # two kernels, each counted under its own name: the bf16 pass, the pull
+    assert lab.LAUNCHES_BY_MODE["lab_pad_bf16"] == 1
+    assert lab.LAUNCHES_BY_MODE["lab_pull_bf16"] == 1
+    ref = lab.pull_bf16_plain(inp, grid, orders, bounds, ex, 2.0)
+    assert_close(out, ref, lab.TOL_PULL_BF16)
+    assert torch.equal(out == 0, ref == 0)
+    # the bf16 pass alone gives its plain version's bits
+    margins = lab.pad_margins(orders[2], 2.0)
+    assert torch.equal(lab.pad_bf16(inp, bounds[2], *margins),
+                       lab.pad_bf16_plain(inp, bounds[2], *margins))
+
+
+def test_lab_pull_bf16_takes_any_batch(cuda_device):
+    # 65536 batches of a 4^3 volume: more batches than a grid's y or z
+    # axis holds
+    from interpol_tpu_torch.ops import lab
+    inp, grid = warp_case(cuda_device, (4, 4, 4), C=1, disp=1.0, B=65536)
+    out = lab.pull_bf16(inp, grid, (3, 1, 2), (3, 4, 0), 1, 1.0)
+    ref = lab.pull_bf16_plain(inp, grid, (3, 1, 2), (3, 4, 0), 1, 1.0)
+    assert_close(out, ref, lab.TOL_PULL_BF16)
+    assert torch.equal(out == 0, ref == 0)
+    assert torch.equal(out[-1:], lab.pull_bf16(inp[-1:], grid[-1:],
+                                               (3, 1, 2), (3, 4, 0), 1, 1.0))
+
+
+def test_lab_gather_takes_any_group_count(cuda_device):
+    # 65537 groups: more than a grid's y axis holds
+    from interpol_tpu_torch.ops import lab
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    table = torch.randn((65537, 2, 5), generator=gen, device=cuda_device)
+    idx = torch.randint(-5, 10, (65537, 2, 3), generator=gen,
+                        device=cuda_device, dtype=torch.int32)
+    for smem in (True, False):
+        assert torch.equal(lab.gather(table, idx, 3, smem),
+                           lab.gather_plain(table, idx, 3))
+
+
+@pytest.mark.parametrize("nacc,dtype,zero", [
+    (1, torch.float32, True), (4, torch.float32, False),
+    (16, torch.float32, False), (8, torch.bfloat16, False),
+    (1, torch.bfloat16, True)])
+def test_lab_fma_counts_no_tile_divides(cuda_device, nacc, dtype, zero):
+    # an element count that no tile of 256 x 1 or 4 elements divides, with
+    # steps left over after the loop unrolled 16 deep: within the gate of
+    # the plain version, and the same bits in a second run
+    from interpol_tpu_torch.ops import lab
+    gen = torch.Generator(cuda_device).manual_seed(7 + nacc)
+    a = torch.randn((5, 7, 131), generator=gen, device=cuda_device)
+    b = torch.randn((5, 7, 131), generator=gen, device=cuda_device)
+    if dtype == torch.bfloat16:
+        a, b = a[..., :130].contiguous(), b[..., :130].contiguous()
+    reps = 37 * nacc
+    ref = lab.fma_plain(a, b, reps, nacc, dtype, zero)
+    out = lab.fma(a, b, reps, nacc, dtype, zero)
+    assert_close(out, ref, lab.TOL_BF16 if dtype == torch.bfloat16
+                 else lab.TOL_F32)
+    assert torch.equal(lab.fma(a, b, reps, nacc, dtype, zero), out)
+
+
 def test_lab_wrappers_raise(cuda_device):
     from interpol_tpu_torch.ops import lab
     a = torch.ones((4, 4), device=cuda_device)
@@ -1288,6 +1366,8 @@ def test_lab_wrappers_raise(cuda_device):
     with pytest.raises(ValueError):
         inp, grid = warp_case(cuda_device, (8, 8, 8))
         lab.pull_bf16(inp, grid, (5, 3, 3), (3, 3, 3), 1, 1.0)
+    with pytest.raises(ValueError):
+        lab.pad_bf16(a, 3, -1, 2)
 
 
 def test_warp_block_knob(cuda_device):

@@ -262,6 +262,99 @@ def test_pull_bf16_other_orders_and_bounds():
         np.testing.assert_array_equal(out.numpy() == 0, ref.numpy() == 0)
 
 
+def _pull_bf16_signs_in_weights(inp, grid, orders, bounds, ex, md):
+    """The premise of ``lab_pull_bf16``'s design: the plain pull over the
+    volume rounded to bf16 first, unsigned, with each tap's fold signs in
+    its weights (z: the bf16 weight times s_z; x * y: (w_x s_x) (w_y
+    s_y)), in :func:`lab.pull_bf16_plain`'s order of sums."""
+    from interpol_tpu_torch.ops.bounds import fold_index, fold_sign
+    from interpol_tpu_torch.ops.window import (_coef_fields, _mask,
+                                               _shift_ranges, _slice_pad,
+                                               _window_geom)
+    ishape = tuple(inp.shape[-3:])
+    ranges = _shift_ranges(orders, md, None, 3)
+    lo, hi = _window_geom(ranges)
+    vb = inp.to(torch.bfloat16).float()
+    signs = []
+    for d in range(3):
+        n = ishape[d]
+        idx = np.arange(-lo[d], n + hi[d])
+        vb = torch.index_select(vb, 2 + d,
+                                torch.as_tensor(fold_index(idx, n, bounds[d])))
+        s = fold_sign(idx, n, bounds[d], np.float32)
+        signs.append(torch.ones(idx.size) if s is None else torch.as_tensor(s))
+
+    def sign(d, s):
+        """The fold sign of the tap at p + s along axis d, as a field."""
+        shape = [1, 1, 1, 1]
+        shape[1 + d] = ishape[d]
+        return signs[d][lo[d] + s:lo[d] + s + ishape[d]].reshape(shape)
+    cx, cy, cz = _coef_fields(grid, orders, ranges, torch.float32)
+    shifts = [range(r[0], r[1] + 1) for r in ranges]
+    czs = [(c.to(torch.bfloat16).float() * sign(2, sz))[:, None]
+           for c, sz in zip(cz, shifts[2])]
+    out = None
+    for ky, sy in enumerate(shifts[1]):
+        for kx, sx in enumerate(shifts[0]):
+            zacc = None
+            for kz, sz in enumerate(shifts[2]):
+                t = czs[kz] * _slice_pad(vb, (sx, sy, sz), lo, ishape)
+                zacc = t if zacc is None else zacc + t
+            wxy = (cx[kx] * sign(0, sx)) * (cy[ky] * sign(1, sy))
+            term = wxy[:, None] * zacc
+            out = term if out is None else out + term
+    mask = _mask(grid, ishape, ex, torch.float32, orders, md, None)
+    return out if mask is None else out * mask[:, None]
+
+
+# orders 0-3; bounds zero (0), dct2 (3), dst1 (4, sign -1 and 0), dft (6);
+# extrapolation on (1) and off (0, 2); contract-breaking grids
+@pytest.mark.parametrize("orders,bounds,ex,brk", [
+    ((3, 3, 3), (4, 4, 4), 1, False), ((0, 1, 2), (0, 3, 6), 0, False),
+    ((2, 3, 1), (6, 0, 4), 1, True), ((1, 0, 3), (3, 4, 0), 2, True),
+    ((3, 2, 3), (0, 6, 3), 0, True)])
+def test_pull_bf16_signs_in_weights_same_bits(orders, bounds, ex, brk):
+    # round(s v) = s round(v) for a fold sign s in {-1, 0, 1}: the volume
+    # rounded to bf16 once, the signs moved into the weights, gives
+    # pull_bf16_plain's bits (the tap-then-round form)
+    md = 1.5
+    vol, grid = _v4_case(11, md, 8, brk)
+    tv, tg = torch.tensor(vol)[None, None], torch.tensor(grid)[None]
+    # half the samples pushed past the edges, where every fold shows
+    tg = tg + torch.tensor(np.where(np.random.default_rng(9).uniform(
+        size=grid.shape) < 0.5, 3.0, 0.0), dtype=torch.float32)[None]
+    ref = lab.pull_bf16_plain(tv, tg, orders, bounds, ex, md)
+    out = _pull_bf16_signs_in_weights(tv, tg, orders, bounds, ex, md)
+    assert torch.equal(out, ref)
+    assert (ref != 0).float().mean() > 0.05
+
+
+# every bound (zero, replicate, dct1, dct2, dst1, dst2, dft), rows of 1, 2
+# and 7 values (dst1 has no sign on a row of one), margins as the window
+# of orders 0 / 1 / 3 at max_disp 2 and 5 gives them
+@pytest.mark.parametrize("bound", range(7))
+def test_pad_bf16_plain_matches_the_jax_fold(bound):
+    # the bf16 pass of the pull: the JAX package's fold index and sign
+    # along z (on numpy arrays), the value times its sign rounded to bf16
+    # (as _kernel_v4 rounds each folded tap)
+    from interpol_tpu.ops.bounds import fold_index, fold_sign
+    rng = np.random.default_rng(10 + bound)
+    for Z in (1, 2, 7):
+        vol = rng.standard_normal((2, 3, Z)).astype(np.float32)
+        for order, md in ((0, 2.0), (1, 5.0), (3, 2.0)):
+            zlo, zhi = lab.pad_margins(order, md)
+            i = np.arange(-zlo, Z + zhi)
+            ref = vol[..., fold_index(i, Z, bound, xp=np)]
+            sign = fold_sign(i, Z, bound, np.float32, xp=np)
+            if sign is not None:
+                ref = ref * sign
+            ref = ref.astype(jnp.bfloat16).astype(np.float32)
+            out = lab.pad_bf16(torch.tensor(vol), bound, zlo, zhi)
+            assert out.dtype == torch.bfloat16
+            assert out.shape == (2, 3, zlo + Z + zhi)
+            np.testing.assert_array_equal(out.float().numpy(), ref)
+
+
 def test_smooth_grid_matches_lab4(labs):
     L4 = labs["tpu_kernel_lab4"]
     for N, md in [(16, 2.0), (24, 4.0)]:
@@ -275,6 +368,7 @@ def test_wrappers_on_cpu_launch_nothing_and_check_arguments():
     a, b = (torch.tensor(x) for x in _ab((2, 4)))
     lab.fma(a, b, 8, nacc=4)
     lab.gather(a[None], torch.zeros((1, 2, 3), dtype=torch.int32))
+    lab.pad_bf16(a, 3, 2, 4)
     assert not any(lab.LAUNCHES_BY_MODE.values())
     with pytest.raises(ValueError):
         lab.fma(a, b, 6, nacc=4)       # reps not a multiple of nacc
