@@ -71,7 +71,9 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
 6. times and peak memory beside the card's name and power limit, push and
    every splat equal across runs, ``grid_sample`` as the library yardstick
    at order 1 (its output for value, its input gradient for push, its grid
-   gradient for the spatial gradient); each adaptive mode beside its full-window mode on P8's flow
+   gradient for the spatial gradient; the adaptive value, grad and push
+   on P8's flow, where they drop no tap at order 1, as well); each
+   adaptive mode beside its full-window mode on P8's flow
    at 256^3 (``max_disp=4``, and value / push at ``max_disp=8``), held to
    its plain version and to the full window; a torch.profiler breakdown
    of one scattered splat (sc_push of 1M points at order 1 and cubic,
@@ -88,11 +90,13 @@ Phases (each prints lines; any failure raises and the exit code is not 0):
    ``spline_coeff_nd_sharded`` of 256^3 and ``dryrun_multichip(1)``;
 8. the kernel lab (``ops/lab.py``, ``csrc/lab.cu``): the bf16 pull against
    its plain version over orders, bounds and a contract-breaking grid, at
-   65536 batches, and the lane gather at 65537 groups, then the lab's
-   runners at the JAX lab's shapes (its main path, launches
+   65536 batches, and the lane gather at 65537 groups on both its paths,
+   then the lab's runners at the JAX lab's shapes (its main path, launches
    counted): the FMA probes (float32 at 1/4/8/16 chains, bf16 pairs), the
    lane gathers (the table in shared memory, and in device memory below
-   L1, inside L2, of kernel 3's 256^3 volume and beyond L2), the bf16 pull
+   L1, inside L2, of kernel 3's 256^3 volume and beyond L2; each with the
+   path it took and its share of the bytes and sector bounds, held to
+   its plain version bit for bit), the bf16 pull
    beside kernel 1a, kernel 1a under the block shapes of the dense gather
    and kernel 1d beside it on a smooth field, and the yardsticks
    (``torch.matmul`` in bf16 and float32, an elementwise FMA chain;
@@ -1275,7 +1279,7 @@ def phase_sc_times(card, errs, sc) -> dict:
     return times
 
 
-def phase_library(card, main, sc) -> dict:
+def phase_library(card, main, sc, ad) -> dict:
     """The one PyTorch call that computes the same function where there is
     one: at order 1, bound zero, extrapolate, F.grid_sample (5-D bilinear,
     align_corners, zeros) is pull, its input gradient is push, and its
@@ -1283,8 +1287,11 @@ def phase_library(card, main, sc) -> dict:
     axis) and flipped to (x, y, z), is the spatial gradient.  Each is held
     to the plain version on the coordinates it computes with (it rounds
     voxel coordinates through [-1, 1] in float32, ~1e-5 voxel at 256),
-    then timed beside the kernel at order 1.  Returns {mode: (library ms,
-    kernel ms at order 1)}."""
+    then timed beside the kernel at order 1.  The adaptive value, grad
+    and push run on P8's flow with its ``tile_spread``, where they drop
+    no tap at order 1: each kernel is held to the full window's plain
+    version, so ``grid_sample`` computes their function too.  Returns
+    {mode: (library ms, kernel ms at order 1)}."""
     import torch.nn.functional as F
 
     def normalized(g, shape):
@@ -1304,32 +1311,47 @@ def phase_library(card, main, sc) -> dict:
     dense_g, dense_at = normalized(flow, MAIN_VOL)
     cloud_g, cloud_at = normalized(pts, (N,) * 3)
     cloud_g = cloud_g.reshape(1, 1, 1, P, 3)
+    flow8, sp8 = ad["flow"], ad["model"].auto_tile_spread()
+    ad_g, ad_at = normalized(flow8, MAIN_VOL)
     # (mode, name, image, normalized grid, cotangent or "grid" for the
     # grid gradient, kernel, plain at voxel coordinates, the coordinates
-    # grid_sample samples at, the volume shape)
+    # grid_sample samples at, the kernel's grid)
     rows = [
         ("value", "dense pull (warp value)", moving, dense_g, None,
          lambda: cuda_warp.warp_cuda(moving, flow, *o1, 4.0)[0],
-         lambda g: _pull_impl_torch(moving, g, *o1, 4.0), dense_at),
+         lambda g: _pull_impl_torch(moving, g, *o1, 4.0), dense_at, flow),
         ("grad", "dense spatial gradient (warp grad)", moving, dense_g,
          "grid",
          lambda: cuda_warp.warp_cuda(moving, flow, *o1, 4.0, value=False,
                                      grad=True)[1],
-         lambda g: _grad_impl_torch(moving, g, *o1, 4.0), dense_at),
+         lambda g: _grad_impl_torch(moving, g, *o1, 4.0), dense_at, flow),
         ("push", "dense push", moving, dense_g, moving,
          lambda: cuda_warp.push_cuda(moving, flow, *o1, 4.0),
-         lambda g: _push_impl_torch(moving, g, *o1, 4.0), dense_at),
+         lambda g: _push_impl_torch(moving, g, *o1, 4.0), dense_at, flow),
+        ("value_ad", "adaptive dense pull (warp value_ad, P8's flow)",
+         moving, ad_g, None,
+         lambda: cuda_warp.warp_cuda(moving, flow8, *o1, 4.0, sp8)[0],
+         lambda g: _pull_impl_torch(moving, g, *o1, 4.0), ad_at, flow8),
+        ("grad_ad", "adaptive dense spatial gradient (warp grad_ad, P8's "
+         "flow)", moving, ad_g, "grid",
+         lambda: cuda_warp.warp_cuda(moving, flow8, *o1, 4.0, sp8,
+                                     value=False, grad=True)[1],
+         lambda g: _grad_impl_torch(moving, g, *o1, 4.0), ad_at, flow8),
+        ("push_ad", "adaptive dense push (push_ad, P8's flow)", moving, ad_g,
+         moving, lambda: cuda_warp.push_cuda(moving, flow8, *o1, 4.0, sp8),
+         lambda g: _push_impl_torch(moving, g, *o1, 4.0), ad_at, flow8),
         ("sc_value", "scattered pull (sc_value)", vol, cloud_g, None,
          lambda: gather_kernel(vol, pts, o1, "sc_value")[0],
-         lambda g: ndkernels.pull_core(vol, g, *o1), cloud_at),
+         lambda g: ndkernels.pull_core(vol, g, *o1), cloud_at, pts),
         ("sc_grad", "scattered spatial gradient (sc_grad)", vol, cloud_g,
          "grid", lambda: gather_kernel(vol, pts, o1, "sc_grad")[0],
-         lambda g: ndkernels.grad_core(vol, g, *o1), cloud_at),
+         lambda g: ndkernels.grad_core(vol, g, *o1), cloud_at, pts),
         ("sc_push", "scattered push (sc_push)", vol, cloud_g, vals,
          lambda: splat_kernel(vals, pts, (N,) * 3, o1, "sc_push"),
-         lambda g: ndkernels.push_core(vals, g, (N,) * 3, *o1), cloud_at)]
+         lambda g: ndkernels.push_core(vals, g, (N,) * 3, *o1), cloud_at,
+         pts)]
     out_ms = {}
-    for mode, name, inp, g, ct, kern, plain, lib_at in rows:
+    for mode, name, inp, g, ct, kern, plain, lib_at, grid0 in rows:
         if ct is None:
             def lib(inp=inp, g=g):
                 return F.grid_sample(inp, g, mode="bilinear",
@@ -1358,7 +1380,6 @@ def phase_library(card, main, sc) -> dict:
             def lib(out=out, leaf=leaf, ctr=ctr):
                 return torch.autograd.grad(out, leaf, ctr,
                                            retain_graph=True)[0]
-        grid0 = flow if "dense" in name else pts
         with torch.no_grad():
             ref_lib, ref = plain(lib_at), plain(grid0)
             e_lib, t_lib = rel_err(lib().reshape(ref.shape), ref_lib)
@@ -2170,18 +2191,25 @@ def phase_lab_kernels() -> None:
         e, t = rel_err(out, lab.pull_bf16_plain(vol, grid, (3, 1, 2),
                                                 (3, 4, 0), 1, 1.0),
                        lab.TOL_PULL_BF16)
-        table = torch.randn((65537, 2, 5), generator=gen, device=DEV)
-        idx = torch.randint(-5, 10, (65537, 2, 3), generator=gen,
-                            device=DEV, dtype=torch.int32)
-        same = all(torch.equal(lab.gather(table, idx, 3, smem),
-                               lab.gather_plain(table, idx, 3))
-                   for smem in (True, False))
-        if not (e <= t and same):
+        # the lane gather on both paths: T = 5 (4-byte reads) and T = 8
+        # (16-byte copies and reads in shared memory), runs of 3 that wrap
+        paths, same = [], True
+        for T in (5, 8):
+            table = torch.randn((65537, 2, T), generator=gen, device=DEV)
+            idx = torch.randint(-T, 2 * T, (65537, 2, 3), generator=gen,
+                                device=DEV, dtype=torch.int32)
+            for smem in (True, False):
+                out, path = lab.gather_and_path(table, idx, 3, smem)
+                paths.append(path)
+                same = same and torch.equal(out,
+                                            lab.gather_plain(table, idx, 3))
+        if not (e <= t and same
+                and paths == ["scalar", "scalar", "vector", "scalar"]):
             raise AssertionError(f"lab past 65535: bf16 pull err {e:.3g}, "
-                                 f"gather equal {same}")
+                                 f"gather equal {same}, paths {paths}")
         log(f"lab past 65535: lab_pull_bf16 B=65536 4^3 err vs plain "
-            f"{e:.3g} (tol {t:.3g}); lab_gather G=65537 equal to plain in "
-            f"shared and device memory")
+            f"{e:.3g} (tol {t:.3g}); lab_gather G=65537 equal to plain at "
+            f"T = 5 and 8 in shared and device memory, paths {paths}")
 
 
 def phase_lab(card) -> dict:
@@ -2208,15 +2236,19 @@ def phase_lab(card) -> dict:
         # a random read from device memory moves a 32-byte sector
         sectors = "" if r["smem"] else (
             f", 32-byte sectors {r['sector_mb']:.1f} MB = "
-            f"{r['sector_ms']:.4f} ms: "
+            f"{r['sector_ms']:.4f} ms "
+            f"({100 * r['sector_share']:.1f} % of it): "
             f"{'sectors' if r['sector_ms'] > r['bound_ms'] else 'bytes'} "
             f"bound it")
         log(f"lab gather {t}: table ({r['G']}, {r['S']}, {r['T']}) "
             f"{r['table_mb']:.1f} MB {'shared' if r['smem'] else 'device'} "
-            f"memory, {r['G'] * r['S'] * r['L']} lanes x {r['reps']} "
-            f"reads: {r['ms']:.4f} ms, {r['greads_s']:.1f} G reads/s; "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){sectors}; "
-            f"err vs plain {r['max_abs_err']:.3g}, plain "
+            f"memory, {r['path']} path, {r['G'] * r['S'] * r['L']} lanes x "
+            f"{r['reps']} reads: {r['ms']:.4f} ms device (L2 evicted before "
+            f"each call; a call by events {r['call_ms']:.4f}), "
+            f"{r['greads_s']:.1f} G reads/s; "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{100 * r['bound_share']:.1f} % of it){sectors}; "
+            f"equal to plain (err {r['max_abs_err']:.3g}), plain "
             f"{r['plain_ms']:.2f} ms; library: torch.gather of the same "
             f"{r['G'] * r['S'] * r['L'] * r['reps']} reads "
             f"{r['lib_gather_ms']:.4f} ms (the sum over reads undone; err "
@@ -2548,7 +2580,7 @@ def main() -> None:
     lap("scattered times")
     times.update(phase_adaptive_times(card, errs, ad, train))
     lap("adaptive times")
-    library = phase_library(card, main_path, sc)
+    library = phase_library(card, main_path, sc, ad)
     phase_splat_profile(card, sc)
     phase_profile(train, ad)
     lap("library and profile")

@@ -36,17 +36,35 @@
 //   lane gather out[g, s, l] = table[g, s, idx[g, s, l]]) and
 //   tpu_kernel_lab5.py::probe (:42, reps chained gathers
 //   table[g, s, (idx + i) % T], summed in order).  Table (G, S, T), idx
-//   (G, S, L) int32, out (G, S, L).  SMEM: a block copies its group's
-//   S x T table into dynamic shared memory (the VMEM counterpart; up to
-//   227 KB) and gathers from there; otherwise it gathers from device
-//   memory through the read-only path, so the table's size picks L1, L2
-//   (50 MB) or HBM.  Bound: bytes (the table, the indices and the output
-//   once), but a random read from device memory moves a 32-byte sector
-//   for 4 useful bytes, so beyond L2 the sector traffic bounds it: the
-//   random-read rate the scattered gather (kernel 3, gather.cu) meets.
-//   One thread per output, its reps reads in a dependent-free loop; the
+//   (G, S, L) int32, out (G, S, L).  SMEM: the table in dynamic shared
+//   memory (the VMEM counterpart; up to 227 KB); otherwise read from
+//   device memory through the read-only path, so the table's size picks
+//   L1, L2 (50 MB) or HBM.  Bound: bytes (the table, the indices and the
+//   output once), but a random read from device memory moves a 32-byte
+//   sector for 4 useful bytes, so beyond L2 the sector traffic bounds it:
+//   the random-read rate the scattered gather (kernel 3, gather.cu) meets.
+//   A block takes 1024 consecutive outputs of one group (4 a thread); the
 //   chunks of every group lie on one grid axis (up to 2^31 - 1 blocks), so
-//   no group count past 65535 is refused.
+//   no group count past 65535 is refused.  Two designs:
+//   - gather_smem_kernel, in shared memory where every row starts on a
+//     16-byte boundary (T % 4 == 0 and a 16-byte-aligned table): a block
+//     copies only the rows its outputs read, by 16-byte cp.async in one
+//     commit group a slice of 256 outputs, and gathers each slice as soon
+//     as its rows have landed; a run is read as the aligned 16-byte shared
+//     words that hold it (16 or 17 for lab 5's 64 reads), its entries
+//     taken out in registers in run order.  A 4-byte read a step was bound
+//     by its read instructions: a map of each warp's lanes to distinct
+//     banks, a skewed schedule and four chains a thread did not move it;
+//     with the table in HBM, one TMA bulk copy a slice took 2-3 % off and
+//     issuing the copy before the index reads nothing (PERF.md);
+//   - gather_kernel, everywhere else: one thread an output at a time, its
+//     reps 4-byte reads in a dependent-free loop, the group's table copied
+//     whole before a __syncthreads in shared memory.  From device memory
+//     16-byte words lost at runs of 4 from L2 (5-8 %) and won only at runs
+//     of 64 from L1 (PERF.md), so its 4-byte reads stay.
+//   The C entry chooses the design and reports it (*vector_path).  Every
+//   design sums each run from +0 in order with __fadd_rn: the same bits
+//   on every path.
 //
 // lab_pull_bf16: replaces tpu_kernel_lab2.py::make_kernel_call (:166) with
 //   _kernel_v4 (:125): the dense-warp value pull of kernel 1 (warp.cu)
@@ -108,7 +126,10 @@
 //                      long long npairs, int nacc, int iters, int zero_init,
 //                      void* stream);
 //   int lab_gather(const float* table, const int* idx, float* out, int G,
-//                  int S, int T, int L, int reps, int smem, void* stream);
+//                  int S, int T, int L, int reps, int smem,
+//                  int* vector_path, void* stream);
+//     (*vector_path: 1 where gather_smem_kernel ran, else 0; the path
+//     follows smem, T % 4 and the table's alignment)
 //   int lab_pad_bf16(const float* inp, void* out, long long rows, int Z,
 //                    int bound, int zlo, int zhi, void* stream);
 //   int lab_pull_bf16(const void* padded, const float* grid, float* val,
@@ -243,6 +264,7 @@ cudaError_t launch_fma(int nacc, const typename K::In* a,
   }
 }
 
+// ---------------------------------------------------------- lane gather
 // Outputs of one block: a block covers kChunk consecutive (s, l) of one
 // group, so a group of S x L outputs takes nb = ceil(S L / kChunk) blocks
 // (each copies the group's table in SMEM mode); block i runs chunk i % nb
@@ -285,6 +307,128 @@ __global__ void __launch_bounds__(256)
       }
     }
     out[o] = acc;
+  }
+}
+
+// 16-byte asynchronous copies from device to shared memory (cp.async,
+// through L2 only) in commit groups; a thread waits for its own groups.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's newest groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Slices of a chunk: thread t takes the chunk's outputs j kThreads + t,
+// j < kSlices, as the loop of gather_kernel does.
+constexpr int kSlices = kChunk / kThreads;
+
+// wait for this thread's groups 0 .. j of kSlices
+__device__ __forceinline__ void cp_async_wait_slice(int j) {
+  static_assert(kSlices == 4, "one case a slice");
+  switch (kSlices - 1 - j) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>();
+  }
+}
+
+// One run from a shared row of W 16-byte words: reps entries from entry
+// k (past the row's end it goes on at word 0), summed in order from +0,
+// read as the aligned words that hold them, two a step; the entries are
+// taken out in registers.
+__device__ __forceinline__ float word_run(const float4* rw, int k, int W,
+                                          int reps) {
+  int cur = k >> 2;
+  const int o = k & 3;
+  float acc = 0.f;
+  // words a run reaches: ceil((o + reps) / 4) <= (reps + 6) / 4
+  const unsigned nw = ((unsigned)reps + 6) >> 2, lim = (unsigned)reps + o;
+  for (unsigned w = 0; w < nw; w += 2) {
+    // word w holds run steps 4 w - o .. 4 w - o + 3
+    const int c1 = cur + 1 == W ? 0 : cur + 1;
+    const float4 a = 4 * w < lim ? rw[cur] : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 b =
+        4 * w + 4 < lim ? rw[c1] : make_float4(0.f, 0.f, 0.f, 0.f);
+    cur = c1 + 1 == W ? 0 : c1 + 1;
+    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    const unsigned p0 = 4 * w - (unsigned)o;  // step of v[0]
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (p0 + e < (unsigned)reps) acc = __fadd_rn(acc, v[e]);
+  }
+  return acc;
+}
+
+// The lane gather from shared memory where every row starts on a 16-byte
+// boundary (T % 4 == 0, a 16-byte-aligned table); blocks and outputs as
+// gather_kernel's.  The block copies only the rows its chunk reaches, by
+// 16-byte cp.async in one commit group a slice (the rows that slice's
+// outputs reach and no earlier group copied), and gathers slice j as soon
+// as groups 0 .. j have landed, so the copy of later rows overlaps it.
+// Each output's run is read as 16-byte shared words (word_run).
+__global__ void __launch_bounds__(kThreads)
+    gather_smem_kernel(const float* __restrict__ table,
+                       const int* __restrict__ idx, float* __restrict__ out,
+                       int S, int T, int L, int reps, unsigned nb) {
+  extern __shared__ float4 tab_w[];
+  const unsigned kg = blockIdx.x / nb;
+  const long long g = kg;
+  const long long SL = (long long)S * L;
+  const long long e0 = (long long)(blockIdx.x - kg * nb) * kChunk;
+  const int n = (int)min((long long)kChunk, SL - e0);
+  // the chunk's first row once a block; rows below count from it
+  const long long s0 = e0 / L;
+  const unsigned rem0 = (unsigned)(e0 - s0 * L), uL = (unsigned)L;
+  const int t = threadIdx.x, W = T >> 2;
+  const float4* tg =
+      reinterpret_cast<const float4*>(table + (g * S + s0) * (long long)T);
+  const int* ib = idx + g * SL + e0;
+  float* ob = out + g * SL + e0;
+  // each slice's row: one 32-bit division a thread, then steps of kThreads
+  unsigned sr[kSlices];
+  int k[kSlices];
+  {
+    unsigned s = (rem0 + t) / uL, rm = rem0 + t - s * uL;
+#pragma unroll
+    for (int j = 0; j < kSlices; ++j) {
+      sr[j] = s;
+      const int i = j * kThreads + t;
+      k[j] = i < n ? pmod(__ldg(ib + i), T) : 0;  // a floor-mod, as jnp's %
+      rm += kThreads;
+      const unsigned q = rm / uL;
+      s += q;
+      rm -= q * uL;
+    }
+  }
+  int done = 0;  // rows that earlier groups copy
+#pragma unroll
+  for (int j = 0; j < kSlices; ++j) {
+    const int last = min((j + 1) * kThreads, n) - 1;
+    const int hi = last >= j * kThreads
+                       ? (int)((rem0 + (unsigned)last) / uL) + 1
+                       : done;
+    for (int w = done * W + t; w < hi * W; w += kThreads)
+      cp_async16(tab_w + w, tg + w);
+    cp_async_commit();
+    done = max(done, hi);
+  }
+#pragma unroll
+  for (int j = 0; j < kSlices; ++j) {
+    cp_async_wait_slice(j);
+    __syncthreads();
+    const int i = j * kThreads + t;
+    if (i < n) ob[i] = word_run(tab_w + sr[j] * W, k[j], W, reps);
   }
 }
 
@@ -540,7 +684,8 @@ extern "C" int lab_fma_bf16x2(const float* a, const float* b, float* out,
 
 extern "C" int lab_gather(const float* table, const int* idx, float* out,
                           int G, int S, int T, int L, int reps, int smem,
-                          void* stream) {
+                          int* vector_path, void* stream) {
+  *vector_path = 0;
   const long long SL = (long long)S * L;
   const long long nb = (SL + kChunk - 1) / kChunk;
   if (G < 1 || S < 1 || T < 1 || L < 1 || reps < 0 ||
@@ -549,8 +694,23 @@ extern "C" int lab_gather(const float* table, const int* idx, float* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = (unsigned)(nb * G);
   if (smem) {
-    const size_t bytes = (size_t)S * T * sizeof(float);
+    size_t bytes = (size_t)S * T * sizeof(float);
     if (bytes > 232448) return (int)cudaErrorInvalidConfiguration;
+    // every row starts on a 16-byte boundary: 16-byte copies and reads
+    if (T % 4 == 0 && reinterpret_cast<size_t>(table) % 16 == 0) {
+      *vector_path = 1;
+      // the rows a chunk reaches: at most 1023 / L + 2, and S
+      bytes = (size_t)min((long long)S, 1023LL / L + 2) * T * sizeof(float);
+      if (bytes > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            gather_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)bytes);
+        if (err != cudaSuccess) return (int)err;
+      }
+      gather_smem_kernel<<<blocks, kThreads, bytes, s>>>(
+          table, idx, out, S, T, L, reps, (unsigned)nb);
+      return (int)cudaGetLastError();
+    }
     if (bytes > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
           gather_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -12,7 +12,8 @@ Counterparts of the Pallas functions of the JAX package's kernel lab
 - :func:`gather` (``lab_gather``): ``tpu_kernel_lab.py::gather_probe`` and
   ``tpu_kernel_lab5.py::probe``: a per-row table gather, ``reps`` chained
   reads at ``(idx + i) % T`` summed, the table in shared memory or read
-  from device memory;
+  from device memory (:func:`gather_and_path`: 16-byte copies and reads
+  of an aligned table in shared memory);
 - :func:`pull_bf16` (``lab_pull_bf16``, after :func:`pad_bf16`,
   ``lab_pad_bf16``): ``tpu_kernel_lab2.py::make_kernel_call`` with
   ``_kernel_v4``: the dense value pull with bf16 box values and z weights,
@@ -49,14 +50,15 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-__all__ = ["fma", "fma_plain", "gather", "gather_plain", "lane_index",
+__all__ = ["fma", "fma_plain", "gather", "gather_and_path", "gather_plain",
+           "lane_index",
            "pad_bf16", "pad_bf16_plain", "pad_margins", "pull_bf16",
            "pull_bf16_plain", "LAUNCHES_BY_MODE",
            "reset_launches", "uncounted", "FMA_VARIANTS",
            "GATHER_TABLES", "PULL_BLOCKS", "fma_probe", "gather_probe",
            "pull_variants", "pull_bf16_probe", "matmul_probe", "chain_probe",
            "smooth_grid", "lab_case", "card_line", "cuda_ms", "device_ms",
-           "timed_once"]
+           "l2_evictor", "timed_once"]
 
 LAUNCHES_BY_MODE: Dict[str, int] = {
     "lab_fma_f32": 0, "lab_fma_bf16x2": 0, "lab_gather_smem": 0,
@@ -67,6 +69,7 @@ LAUNCHES_BY_MODE: Dict[str, int] = {
 # white paper (H100 SXM5: 133.8 TFLOP/s, twice float32)
 HBM_BYTES_PER_S, FP32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 133.8e12
 SECTOR = 32                     # bytes a random device-memory read moves
+L2_EVICT_BYTES = 4 * 50 * 2**20  # four times the card's L2 (50 MB)
 SMEM_MAX = 232448               # dynamic shared memory a block can take
 
 
@@ -99,7 +102,8 @@ def _entry(name: str):
         fn.argtypes = {
             "lab_fma_f32": [vp, vp, vp, ll, i, i, i, vp],
             "lab_fma_bf16x2": [vp, vp, vp, ll, i, i, i, vp],
-            "lab_gather": [vp, vp, vp, i, i, i, i, i, i, vp],
+            "lab_gather": [vp, vp, vp, i, i, i, i, i, i,
+                           ctypes.POINTER(i), vp],
             "lab_pad_bf16": [vp, vp, ll, i, i, i, i, vp],
             "lab_pull_bf16": [vp, vp, vp, ctypes.POINTER(_WarpParams), i,
                               i, vp],
@@ -249,11 +253,26 @@ def gather_plain(table: torch.Tensor, idx: torch.Tensor,
 def gather(table: torch.Tensor, idx: torch.Tensor, reps: int = 1,
            smem: bool = True) -> torch.Tensor:
     """The lane gather of :func:`gather_plain` on float32 ``table``
-    (G, S, T) and int32 ``idx`` (G, S, L).  ``smem``: each block copies its
-    group's S x T table into shared memory (at most 227 KB) and gathers
-    there; otherwise it gathers from device memory."""
+    (G, S, T) and int32 ``idx`` (G, S, L), the plain version's bits.
+    ``smem``: each block copies its group's S x T table (at most 227 KB;
+    on the vector path only the rows its outputs read) into shared memory
+    and gathers there; otherwise it gathers from device memory.  The path
+    (:func:`gather_and_path`) follows the mode and the table's shape and
+    alignment."""
+    return gather_and_path(table, idx, reps, smem)[0]
+
+
+def gather_and_path(table: torch.Tensor, idx: torch.Tensor, reps: int = 1,
+                    smem: bool = True):
+    """(:func:`gather`'s output, the path ``lab_gather`` reported taking):
+    ``"vector"`` where it ran the shared-memory kernel for tables whose
+    rows all start on a 16-byte boundary (T % 4 == 0 and a 16-byte-aligned
+    ``data_ptr()``): rows copied by 16-byte ``cp.async``, each run read as
+    16-byte shared words; ``"scalar"`` where it ran one 4-byte read a step
+    (every other shared table, and always from device memory); ``"plain"``
+    on the CPU."""
     if table.device.type == "cpu":
-        return gather_plain(table, idx, reps)
+        return gather_plain(table, idx, reps), "plain"
     _gather_args(table, idx)
     _check("gather", torch.float32, table)
     _check("gather", torch.int32, idx, table)
@@ -265,10 +284,11 @@ def gather(table: torch.Tensor, idx: torch.Tensor, reps: int = 1,
     if max(G, S, T, L) >= 2**31 or reps < 0:
         raise ValueError("gather: sizes beyond int32")
     out = torch.empty(idx.shape, dtype=torch.float32, device=table.device)
+    vector = ctypes.c_int(0)
     _call("lab_gather", table, table.data_ptr(), idx.data_ptr(),
-          out.data_ptr(), G, S, T, L, reps, int(smem))
+          out.data_ptr(), G, S, T, L, reps, int(smem), ctypes.byref(vector))
     LAUNCHES_BY_MODE["lab_gather_smem" if smem else "lab_gather_global"] += 1
-    return out
+    return out, "vector" if vector.value else "scalar"
 
 
 # -------------------------------------------------------------- bf16 pull
@@ -411,13 +431,42 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median of ``reps`` CUDA-event timings after ``warmup`` calls."""
+def l2_evictor():
+    """(evict, keys): ``evict()`` reads a buffer of :data:`L2_EVICT_BYTES`
+    on the current card, so that the next call finds none of its inputs in
+    L2 and leaves it no dirty line to write back; ``keys``, the profiler
+    keys of its kernels, which a timing of the call leaves out."""
+    # row sums: each block reduces its own rows, so no semaphore memset
+    buf = torch.ones((L2_EVICT_BYTES // 4096, 1024), device="cuda")
+
+    def evict():
+        buf.sum(1)
+    # the keys of three traces: a trace now and then lacks a record
+    keys = set()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            evict()
+            torch.cuda.synchronize()
+        keys |= {e.key for e in prof.key_averages()
+                 if e.device_time_total > 0}
+    if not keys:
+        raise RuntimeError("l2_evictor: the profiler traced no launch")
+    return evict, keys
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1, cold: bool = False) -> float:
+    """Median of ``reps`` CUDA-event timings after ``warmup`` calls;
+    ``cold``: L2 evicted before each (:func:`l2_evictor`)."""
+    evict = l2_evictor()[0] if cold else None
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if evict:
+            evict()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -428,14 +477,19 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+def device_ms(fn, reps: int = 20, warmup: int = 2,
+              cold: bool = False) -> float:
     """The device time in ms of one call of ``fn``: the kernels and copies
     it launches, traced by ``torch.profiler`` (CUDA activity) over ``reps``
     calls after ``warmup``; each kernel's mean duration a launch times its
     launches a call.  A trace now and then lacks some launches' records
     (the mean stands on those it has) or holds none (traced again, up to 5
     times).  The host's time inside a call, which an event pair around
-    that one call counts while the device waits, is left out."""
+    that one call counts while the device waits, is left out.  ``cold``:
+    L2 evicted before each call (:func:`l2_evictor`, its kernels left
+    out), so that inputs smaller than L2 come from HBM, as the bytes bound
+    counts them."""
+    evict, skip = l2_evictor() if cold else (None, set())
     for _ in range(warmup):
         fn()
     for _ in range(5):
@@ -443,9 +497,12 @@ def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                if evict:
+                    evict()
                 fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages() if e.device_time_total > 0]
+        ev = [e for e in prof.key_averages()
+              if e.device_time_total > 0 and e.key not in skip]
         if ev:
             return sum(e.device_time_total / e.count
                        * max(1, round(e.count / reps)) for e in ev) / 1e3
@@ -552,10 +609,13 @@ def gather_probe(table: str = "smem", device="cuda", reps_t: int = 20,
                  groups: int = None, lanes: int = None) -> dict:
     """The lane-gather rate at one :data:`GATHER_TABLES` entry (``tab``,
     ``reps``, ``groups``, ``lanes`` override T, the chained reads, G and L,
-    as the labs' CLIs take them):
-    reads/s, beside two bounds: the bytes read once and the 32-byte
-    sectors a random device-memory read moves (one per run of
-    consecutive entries, and one more where a run crosses a sector)."""
+    as the labs' CLIs take them), held to its plain version bit for bit:
+    reads/s and the path taken (:func:`gather_and_path`), beside two
+    bounds and the time's share of each: the bytes read once and the
+    32-byte sectors a random device-memory read moves (one per run of
+    consecutive entries, and one more where a run crosses a sector).
+    Every timed call starts with L2 evicted, so that the table comes from
+    HBM, as both bounds count it."""
     G, S, T, L, r, smem = GATHER_TABLES[table]
     G, T, L, r = groups or G, tab or T, lanes or L, reps or r
     gen = torch.Generator(device).manual_seed(0)
@@ -565,12 +625,19 @@ def gather_probe(table: str = "smem", device="cuda", reps_t: int = 20,
 
     def kern():
         return gather(tbl, idx, r, smem)
+    with uncounted():
+        out, path = gather_and_path(tbl, idx, r, smem)
     res = dict(table=table, G=G, S=S, T=T, L=L, reps=r, smem=smem,
-               table_mb=4 * G * S * T / 1e6)
+               table_mb=4 * G * S * T / 1e6, path=path)
     if check:
-        res["max_abs_err"], res["tol"], res["plain_ms"] = _held(
-            kern, lambda: gather_plain(tbl, idx, r), TOL_F32)
-    ms = device_ms(kern, reps_t)
+        # the same float32 sums in the same order: the plain version's bits
+        ref, res["plain_ms"] = timed_once(lambda: gather_plain(tbl, idx, r))
+        if not torch.equal(out, ref):
+            raise AssertionError(f"gather {table}: differs from its plain "
+                                 f"version")
+        res["max_abs_err"] = (out - ref).abs().max().item()
+        res["tol"] = 0.0
+    ms = device_ms(kern, reps_t, cold=True)
     n = G * S * L
     nbytes = 4 * (G * S * T + 2 * n)
     b_ms, b_by = _bound(nbytes, n * r)
@@ -579,18 +646,20 @@ def gather_probe(table: str = "smem", device="cuda", reps_t: int = 20,
     per_run = sum(((o * 4) % SECTOR + 4 * r + SECTOR - 1) // SECTOR
                   for o in range(SECTOR // 4)) / (SECTOR // 4)
     sector_bytes = SECTOR * per_run * n + 8 * n
-    res.update(ms=ms, call_ms=cuda_ms(kern, reps_t, 2),
+    sector_ms = sector_bytes / HBM_BYTES_PER_S * 1e3
+    res.update(ms=ms, call_ms=cuda_ms(kern, reps_t, 2, cold=True),
                greads_s=n * r / ms / 1e6, bound_ms=b_ms,
                bound_by=b_by, sector_mb=sector_bytes / 1e6,
-               sector_ms=sector_bytes / HBM_BYTES_PER_S * 1e3,
-               card=card_line())
+               sector_ms=sector_ms, bound_share=b_ms / ms,
+               sector_share=sector_ms / ms, card=card_line())
     res.update(_gather_library(tbl, idx, r, reps_t, check))
     return res
 
 
 def _gather_library(tbl, idx, r, reps_t, check):
-    """The library calls beside the lane gather, timed and used nowhere
-    else: ``torch.gather`` of the same lanes (each lane's ``r`` chained
+    """The library calls beside the lane gather, timed (L2 evicted before
+    each call, as the gather) and used nowhere else: ``torch.gather`` of
+    the same lanes (each lane's ``r`` chained
     reads as (G, S, L*r) indices, built beforehand; the sum over ``r`` is
     left undone), and, where a lane reads one run of 4 entries from device
     memory (the random-row sweeps), ``index_select`` of the 16-byte rows
@@ -602,7 +671,7 @@ def _gather_library(tbl, idx, r, reps_t, check):
                          + torch.arange(r, device=tbl.device), T)
     kk = kk.reshape(G, S, L * r)
     out = {"lib_gather_ms": device_ms(lambda: torch.gather(tbl, 2, kk),
-                                      reps_t), "lib_rows_ms": None,
+                                      reps_t, cold=True), "lib_rows_ms": None,
            "lib_rows16_ms": None}
     if check:
         lib = torch.gather(tbl, 2, kk).reshape(G, S, L, r).sum(-1)
@@ -614,10 +683,10 @@ def _gather_library(tbl, idx, r, reps_t, check):
         base = (torch.arange(G * S, device=tbl.device) * T).reshape(G, S, 1)
         ridx = ((base + idx.long()) // 4).reshape(-1)
         out["lib_rows_ms"] = device_ms(
-            lambda: torch.index_select(rows, 0, ridx), reps_t)
+            lambda: torch.index_select(rows, 0, ridx), reps_t, cold=True)
         rows16 = rows.view(torch.complex128)[:, 0]
         out["lib_rows16_ms"] = device_ms(
-            lambda: torch.index_select(rows16, 0, ridx), reps_t)
+            lambda: torch.index_select(rows16, 0, ridx), reps_t, cold=True)
     return out
 
 

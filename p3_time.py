@@ -54,9 +54,10 @@ FMA chains of every ``FMA_VARIANTS`` entry (the lab's inputs, numpy seed
 ``lab_case``) beside kernel 1a on the same inputs, the bf16 pull on
 ``chip_smoke.py``'s lab cases (64^3, three order / bound / mask sets, on
 the lab grid and on one that breaks ``max_disp``), and the lane gathers
-of every ``GATHER_TABLES`` entry; a row of several kernels (the bf16
-pull: its pass and the pull) also gives each kernel's device time.  It
-builds only ``lab.cu`` and ``warp.cu``.
+of every ``GATHER_TABLES`` entry (L2 evicted before each timed call, so
+that the table comes from HBM as their bound counts it); a row of
+several kernels (the bf16 pull: its pass and the pull) also gives each
+kernel's device time.  It builds only ``lab.cu`` and ``warp.cu``.
 """
 from __future__ import annotations
 
@@ -139,13 +140,42 @@ def main() -> None:
           f"[{card}]", flush=True)
 
 
-def cuda_ms(fn, reps=20):
-    """Median of ``reps`` CUDA-event timings after one warm-up call."""
+def l2_evictor():
+    """(evict, keys): ``evict()`` reads 200 MiB, four times the card's L2,
+    so that the next call reads its inputs from HBM; ``keys``, its kernels'
+    profiler keys.  Its own copy of ``ops/lab.py::l2_evictor``."""
     import torch
+    # row sums: each block reduces its own rows, so no semaphore memset
+    buf = torch.ones((50 * 2**10, 1024), device="cuda")
+
+    def evict():
+        buf.sum(1)
+    # the keys of three traces: a trace now and then lacks a record
+    keys = set()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            evict()
+            torch.cuda.synchronize()
+        keys |= {e.key for e in prof.key_averages()
+                 if e.device_time_total > 0}
+    if not keys:
+        raise RuntimeError("l2_evictor: the profiler traced no launch")
+    return evict, keys
+
+
+def cuda_ms(fn, reps=20, cold=False):
+    """Median of ``reps`` CUDA-event timings after one warm-up call;
+    ``cold``: L2 evicted before each (:func:`l2_evictor`)."""
+    import torch
+    evict = l2_evictor()[0] if cold else None
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if evict:
+            evict()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -156,15 +186,17 @@ def cuda_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=20, by_kernel=None):
+def device_ms(fn, calls=20, by_kernel=None, cold=False):
     """The device time in ms of one call of ``fn``: the kernels and copies
     it launches (``torch.profiler``) over ``calls`` calls after two
     warm-up calls, each kernel's mean duration a launch times its launches
     a call (a trace now and then lacks some records); nan when five traces
     hold none.  ``by_kernel``: a dict that receives each kernel's share.
-    Its own copy of ``ops/lab.py::device_ms``: the checkout under
-    ``--root`` may predate that one."""
+    ``cold``: L2 evicted before each call (its kernels left out).  Its own
+    copy of ``ops/lab.py::device_ms``: the checkout under ``--root`` may
+    predate that one."""
     import torch
+    evict, skip = l2_evictor() if cold else (None, set())
     for _ in range(2):
         fn()
     for _ in range(5):
@@ -172,11 +204,14 @@ def device_ms(fn, calls=20, by_kernel=None):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
+                if evict:
+                    evict()
                 fn()
             torch.cuda.synchronize()
         ms = {e.key: e.device_time_total / e.count
               * max(1, round(e.count / calls)) / 1e3
-              for e in prof.key_averages() if e.device_time_total > 0}
+              for e in prof.key_averages()
+              if e.device_time_total > 0 and e.key not in skip}
         if ms:
             if by_kernel is not None:
                 by_kernel.update(ms)
@@ -584,14 +619,18 @@ def time_lab(tag, card, only=""):
             if not wanted(name, only):
                 continue
             parts = {}
-            dev = device_ms(fn, by_kernel=parts)    # nan: not measured
-            ms = cuda_ms(fn)
+            # the gathers' tables come from HBM, as their bound counts them
+            cold = name.startswith("gather ")
+            # nan: not measured
+            dev = device_ms(fn, by_kernel=parts, cold=cold)
+            ms = cuda_ms(fn, cold=cold)
             extra = ""
             if len(parts) > 1:      # the bf16 pull's pass and pull
                 extra = " (" + ", ".join(
                     f"{(re.search(r'[A-Za-z0-9_]+_kernel', k) or [k])[0]} "
                     f"{v:.4f}" for k, v in sorted(parts.items())) + ")"
-            print(f"lab {name} [{tag}]: device {dev:.4f} ms, bound "
+            print(f"lab {name} [{tag}]: device {dev:.4f} ms"
+                  f"{' (L2 evicted before each call)' if cold else ''}, bound "
                   f"{bound:.4f} ms, {100 * bound / dev:.1f} % of it; a call "
                   f"{ms:.4f} ms (events, median of 20){extra}, output "
                   f"sha256 {digest(fn())} [{card}]", flush=True)

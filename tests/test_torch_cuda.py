@@ -1245,18 +1245,53 @@ def test_lab_fma_matches_plain(cuda_device, nacc, dtype, zero):
     assert_close(out, lab.fma_plain(a, b, 64 * nacc, nacc, dtype, zero))
 
 
-@pytest.mark.parametrize("G,S,T,L,reps,smem", [
+# the lane gather's two paths (lab.gather_and_path): in shared memory 16-byte
+# copies and reads where T % 4 == 0 and the table is 16-byte aligned, 4-byte
+# reads elsewhere and from device memory; runs that wrap past the row's end,
+# reps past T, chunks that span rows, indices in [-T, 2T), the shared-memory
+# table at its 232448-byte limit
+LAB_GATHER_PATH_CASES = [
+    (2, 3, 8, 33, 11), (2, 3, 8, 33, 20), (1, 2, 8, 5, 0), (2, 5, 12, 100, 1),
+    (2, 5, 12, 100, 4), (1, 4, 16, 300, 4), (1, 3, 40, 2000, 4),
+    (1, 2, 64, 1024, 64), (3, 8, 2304, 128, 64), (1, 8, 7264, 33, 5),
+    (1, 1, 58112, 1500, 3), (2, 5, 7, 33, 9), (1, 3, 2306, 700, 64),
+    (1, 2, 7, 2, 0), (4, 3, 7, 50, 1), (1, 2, 2306, 90, 4)]
+
+
+def _lab_gather_case(device, G, S, T, L, seed):
+    gen = torch.Generator(device).manual_seed(seed)
+    table = torch.randn((G, S, T), generator=gen, device=device)
+    idx = torch.randint(-T, 2 * T, (G, S, L), generator=gen, device=device,
+                        dtype=torch.int32)
+    return table, idx
+
+
+def _lab_gather_counted(table, idx, reps, smem, path):
+    # one launch, counted under its mode, on the path the C entry reports;
+    # the plain version's bits
+    from interpol_tpu_torch.ops import lab
+    name = "lab_gather_smem" if smem else "lab_gather_global"
+    before = lab.LAUNCHES_BY_MODE[name]
+    out, took = lab.gather_and_path(table, idx, reps, smem)
+    assert lab.LAUNCHES_BY_MODE[name] == before + 1
+    assert took == path
+    assert torch.equal(out, lab.gather_plain(table, idx, reps))
+
+
+LAB_GATHER_CASES = [
     (8, 8, 256, 128, 1, True), (3, 8, 2304, 128, 64, True),
     (3, 8, 2304, 128, 64, False), (1, 8, 2**20, 4096, 4, False),
-    (2, 5, 7, 33, 9, True)])
+    (2, 5, 7, 33, 9, True)]
+
+
+@pytest.mark.parametrize("G,S,T,L,reps,smem", LAB_GATHER_CASES + [
+    c + (smem,) for c in LAB_GATHER_PATH_CASES for smem in (True, False)
+    if c + (smem,) not in LAB_GATHER_CASES])
 def test_lab_gather_matches_plain(cuda_device, G, S, T, L, reps, smem):
     from interpol_tpu_torch.ops import lab
-    gen = torch.Generator(cuda_device).manual_seed(T)
-    table = torch.randn((G, S, T), generator=gen, device=cuda_device)
-    idx = torch.randint(-T, 2 * T, (G, S, L), generator=gen,
-                        device=cuda_device, dtype=torch.int32)
-    out = lab.gather(table, idx, reps, smem)
-    assert torch.equal(out, lab.gather_plain(table, idx, reps))
+    table, idx = _lab_gather_case(cuda_device, G, S, T, L, T)
+    _lab_gather_counted(table, idx, reps, smem,
+                        "vector" if smem and T % 4 == 0 else "scalar")
 
 
 @pytest.mark.parametrize("orders,bounds,ex,md,brk", [
@@ -1317,7 +1352,8 @@ def test_lab_pull_bf16_takes_any_batch(cuda_device):
 
 
 def test_lab_gather_takes_any_group_count(cuda_device):
-    # 65537 groups: more than a grid's y axis holds
+    # 65537 groups: more than a grid's y axis holds; on the 4-byte (T = 5)
+    # and, in shared memory, the 16-byte (T = 8) path
     from interpol_tpu_torch.ops import lab
     gen = torch.Generator(cuda_device).manual_seed(1)
     table = torch.randn((65537, 2, 5), generator=gen, device=cuda_device)
@@ -1326,6 +1362,28 @@ def test_lab_gather_takes_any_group_count(cuda_device):
     for smem in (True, False):
         assert torch.equal(lab.gather(table, idx, 3, smem),
                            lab.gather_plain(table, idx, 3))
+    table, idx = _lab_gather_case(cuda_device, 65537, 2, 8, 3, 11)
+    for smem in (True, False):
+        _lab_gather_counted(table, idx, 3, smem,
+                            "vector" if smem else "scalar")
+
+
+@pytest.mark.parametrize("smem", [True, False])
+@pytest.mark.parametrize("T", [7, 8, 2304])
+def test_lab_gather_misaligned_tables(cuda_device, T, smem):
+    # table[1:]: aligned where S T % 4 == 0 (T = 8, 2304), not at T = 7; a
+    # table one float into its buffer is not 16-byte aligned at any T
+    from interpol_tpu_torch.ops import lab
+    G, S, L = 3, 5, 70
+    table, idx = _lab_gather_case(cuda_device, G + 1, S, T, L, T)
+    sliced = table[1:]
+    assert sliced.is_contiguous()
+    _lab_gather_counted(sliced, idx[1:], 9, smem,
+                        "vector" if smem and T % 4 == 0 else "scalar")
+    flat = torch.randn(G * S * T + 1, device=cuda_device)
+    shifted = flat[1:].view(G, S, T)
+    assert shifted.data_ptr() % 16 != 0
+    _lab_gather_counted(shifted, idx[1:], 9, smem, "scalar")
 
 
 @pytest.mark.parametrize("nacc,dtype,zero", [

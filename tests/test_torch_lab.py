@@ -161,7 +161,9 @@ def test_lane_gather_matches_jax(labs):
     # lab5's probe: reps chained reads at (idx + i) % T, summed in order
     L5 = labs["tpu_kernel_lab5"]
     rng = np.random.default_rng(5)
-    for tab, reps, rows in [(40, 5, 2), (130, 64, 1), (7, 9, 3)]:
+    # tab 8, reps 11: T % 4 == 0 (the card's 16-byte path) and every run
+    # wraps past the row's end, some twice
+    for tab, reps, rows in [(40, 5, 2), (130, 64, 1), (7, 9, 3), (8, 11, 2)]:
         table = rng.standard_normal((rows, 8, tab)).astype(np.float32)
         idx = rng.integers(0, tab, (rows, 8, 128)).astype(np.int32)
         spec_t = pl.BlockSpec((1, 8, tab), lambda i: (i, 0, 0))
@@ -178,6 +180,20 @@ def test_lane_gather_matches_jax(labs):
     i = torch.tensor([[[-1, 10, 23]]], dtype=torch.int32)
     np.testing.assert_array_equal(lab.gather_plain(t, i, 2).numpy(),
                                   [[[9.0 + 0.0, 0.0 + 1.0, 3.0 + 4.0]]])
+
+
+@pytest.mark.parametrize("smem", [True, False])
+def test_gather_and_path_on_the_cpu_is_plain(smem):
+    # a CPU table, aligned or one float into its buffer, takes the plain
+    # version and says so: the card's paths are the C entry's to report
+    rng = np.random.default_rng(2)
+    flat = torch.tensor(rng.standard_normal(3 * 2 * 8 + 1),
+                        dtype=torch.float32)
+    idx = torch.tensor(rng.integers(-8, 16, (3, 2, 5)), dtype=torch.int32)
+    for table in (flat[:-1].view(3, 2, 8), flat[1:].view(3, 2, 8)):
+        out, path = lab.gather_and_path(table, idx, 11, smem)
+        assert path == "plain"
+        assert torch.equal(out, lab.gather_plain(table, idx, 11))
 
 
 def _v4_case(N, md, seed, break_contract=False):
